@@ -1,5 +1,6 @@
 """Test harness: force the CPU backend with a virtual 8-device mesh so
-sharding paths are testable without TPU hardware (SURVEY.md section 4)."""
+sharding paths are testable without accelerator hardware (SURVEY.md
+section 4)."""
 
 import os
 

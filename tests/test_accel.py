@@ -204,6 +204,8 @@ def test_treelet_frame_tiling(blob_tb, mod_name):
     t = np.asarray(t)
     dis = id_ref != pid
     assert dis.mean() <= 0.005, f"{dis.sum()} of {dis.size} ids differ"
+    same = ~dis & (pid >= 0)
+    np.testing.assert_allclose(t[same], t_ref[same], rtol=1e-4, atol=1e-4)
     # Every disputed claim must be a genuinely borderline hit: re-test
     # the claimed (ray, triangle) pair with the scalar Möller form and
     # require it within epsilon of the valid region (a wrong id would
@@ -261,32 +263,6 @@ def test_packet_multi_round_pause(blob_tb):
     finally:
         packet.K_EMIT = orig
     np.testing.assert_array_equal(np.asarray(id_ref), np.asarray(pid))
-
-
-def test_treelet_interpret_pallas_path(blob_tb, monkeypatch):
-    """TRACER_FORCE_PALLAS exercises the Pallas kernels in interpret mode
-    on CPU (the same code path the TPU compiles)."""
-    import importlib
-
-    monkeypatch.setenv("TRACER_FORCE_PALLAS", "1")
-    mesh, tb = blob_tb
-    rays = _mixed_rays(mesh, n=256, seed=5)
-    t_ref, id_ref = mesh_brute_force(
-        rays, jnp.asarray(mesh.vertices), jnp.asarray(mesh.indices)
-    )
-    for mod_name in ("packet", "flat"):
-        mod = importlib.import_module(f"tracer.accel.{mod_name}")
-        t, pid = mod.closest_hit(rays, tb)
-        np.testing.assert_array_equal(np.asarray(id_ref), np.asarray(pid))
-        b = mod.any_hit(
-            make_rays(rays.o, rays.d, tmax=4.0), tb
-        )
-        b_ref = mesh_brute_force_anyhit(
-            make_rays(rays.o, rays.d, tmax=4.0),
-            jnp.asarray(mesh.vertices),
-            jnp.asarray(mesh.indices),
-        )
-        np.testing.assert_array_equal(np.asarray(b_ref), np.asarray(b))
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Golden-image tests: wavefront TPU integrator vs the scalar CPU oracle.
+"""Golden-image tests: wavefront integrator vs the scalar CPU oracle.
 
 The correctness gate from BASELINE.md: rendered images allclose vs a CPU
 reference tracer. Both implementations consume identical PRNG streams, so
@@ -218,7 +218,7 @@ def test_bsp_fast_execution_matches_walk():
     default (cfg.bsp_execution == "fast"); the faithful per-ray BSP walk
     must produce the same image — closest-hit is traversal-independent.
     This is the parity gate for routing the reference's default w6-w8
-    engine (res/shaders/bsp.wgsl) through the TPU-fast path."""
+    engine (res/shaders/bsp.wgsl) through the treelet engines."""
     desc = _small(get_scene("W6 E1 Teapot"), 16, 16)
     scene_f, cfg_f = build_scene(desc)
     assert cfg_f.traversal == "bsp" and scene_f.tb is not None

@@ -1,4 +1,4 @@
-"""tracer — a TPU-native differentiable Monte-Carlo path tracer.
+"""tracer — a differentiable Monte-Carlo path tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the reference
 Rust + wgpu/WGSL renderer (``cakarsubasi/02562_raytracer``): OBJ/MTL scene
@@ -6,10 +6,10 @@ loading, BSP-tree and LBVH acceleration structures, Möller-style triangle
 intersection, Lambertian/Phong/mirror/dielectric (Fresnel + Beer-Lambert)
 materials, point/directional/area-light next-event estimation, HDR environment
 maps with RGBE decoding, stratified sampling, and progressive accumulation with
-Russian-roulette termination — rebuilt TPU-first:
+Russian-roulette termination:
 
 * the per-pixel fragment-shader megaloop of the reference
-  (``res/shaders/*.wgsl``) becomes a ``jax.jit``/Pallas wavefront over ray
+  (``res/shaders/*.wgsl``) becomes a ``jax.jit`` wavefront over ray
   batches with masked material dispatch (no divergent branches);
 * the CPU Rust builders (``src/data_structures/``) become vectorized
   NumPy/JAX builders plus an optional native C++ fast path;
@@ -24,24 +24,18 @@ __version__ = "0.1.0"
 
 import os as _os
 
+# Default persistent compilation cache: one fixed directory inside the
+# checkout (gitignored). JAX itself reads JAX_COMPILATION_CACHE_DIR when it
+# is set, and then no other path is configured here.
+CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))), ".jax_cache"
+)
 
-def _enable_compilation_cache() -> None:
-    """Persist XLA compilations across processes (the traversal while-loops
-    are expensive to compile; the cache makes reruns instant)."""
-    try:
-        import jax
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    import jax as _jax
 
-        cache_dir = _os.environ.get(
-            "TRACER_JAX_CACHE", _os.path.expanduser("~/.cache/tracer-jax")
-        )
-        _os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-    except Exception:
-        pass
+    _jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
 
-
-_enable_compilation_cache()
 
 def __getattr__(name):
     # Lazy top-level re-exports so light submodule imports stay cheap.

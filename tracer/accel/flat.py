@@ -8,16 +8,17 @@ wavefronts (primary rays, shadow rays): there is no tree and no walk.
   sub-tiles of 8x16). Each super-tile is summarized by an interval bound
   (origin AABB, per-axis direction interval, t window).
 * One dense (n_super, NT) conservative interval slab test culls every
-  treelet against every super-tile in a single fused VPU pass; the
+  treelet against every super-tile in a single fused pass; the
   survivors are compacted to a near-ordered top-K emission list with
-  ``jax.lax.top_k``. Super granularity keeps both passes ~an order of
-  magnitude cheaper than per-packet culling.
-* The emissions feed the super-tile Pallas kernel
-  (``tracer.kernels.super_hits``), which recovers sub-tile precision: each
-  streamed block is slab-tested against all 16 sub-tile frustums, each
-  sub-tile keeps its own monotone early-break bound, and the Moller tests
-  are per-ray exact — so the conservative cull costs extra block tests,
-  never correctness.
+  ``jax.lax.top_k``.
+* The surviving blocks are refined to quarter-blocks with per-sub-tile
+  gate bits, and the hits stage recovers sub-tile precision: each
+  sub-tile tests only the quarter-blocks its own frustum passes, keeps
+  its own monotone early-break bound, and runs per-ray exact Möller tests
+  — so the conservative cull costs extra block tests, never correctness.
+  On the GPU the hits stage is the Pallas kernel
+  ``tracer.kernels.super_hits``; on the CPU it is the plain-XLA form
+  ``_phase_b_xla_q``, which is also the kernel's reference.
 
 Super-tiles whose emission count exceeds K sweep the remaining blocks in
 id order (rare: silhouette tiles with unbounded frustums), so arbitrarily
@@ -28,44 +29,27 @@ packet walk (``tracer.accel.packet``) instead.
 
 from __future__ import annotations
 
-import os
 from functools import partial
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
-from tracer.accel.treelet import TreeletBvh
+from tracer.accel.treelet import NQ, TreeletBvh
+from tracer.kernels import super_hits
 from tracer.kernels.intersect import Rays
 from tracer.kernels.super_hits import NSUB, SUB, SUPER
 
-_INF = jnp.float32(3.0e38)
-_BIG = jnp.float32(1.0e18)  # indefinite-interval sentinel (safe in products)
-# Emission budget per super-tile. The dragon frame peaks at 54 super-cull
-# survivors per super (mean 14, p99 42) — K=96 covers a 1.8x margin; the
-# id-ordered overflow sweep keeps larger working sets exact (just slower),
-# and the K-wide qbox row gather is per-INDEX priced (finding 19), so an
-# oversized K is pure prep cost (K=256 measured +1 ms/frame of gather).
-K_EMIT = int(os.environ.get("TRACER_KEMIT", "96"))
+# NumPy scalars, not jnp arrays: a jnp constant is captured by the traced
+# program as an extra argument, which the platform-dependent hits stage
+# (``_dispatch``) breaks on recompilation.
+_INF = np.float32(3.0e38)
+_BIG = np.float32(1.0e18)  # indefinite-interval sentinel (safe in products)
+# Block emission budget per super-tile (each block streams as NQ
+# quarter-blocks). Super-tiles with more cull survivors fall into the
+# id-ordered overflow sweep, which stays exact but runs without the break.
+K_EMIT = 96
 MAX_ROUNDS = 4096
-
-# Quarter-block emission granularity (TRACER_QEMIT). Default ON since the
-# r5 restructure: with the emission near-sort gone and the kernel
-# skipping empty-gate entries before their DMA, the quarter-granularity
-# kernel is strictly faster than block (7.9 vs 9.2 ms kernel-only;
-# 15.8 vs 16.6 ms/frame on the dragon). The r4 "finer granularity
-# loses" measurement (14.2 vs 12.0) was dominated by the KQ-wide
-# near-sort top_k in the old _quarter_emissions prep, not per-visit cost.
-QUARTER_EMIT = os.environ.get("TRACER_QEMIT", "1") != "0"
-
-# Two-phase closest-hit stream (TRACER_2PHASE=1): phase 1 consumes the
-# nearest PHASE1_EMITS emissions, then the tail is RE-GATED against the
-# per-sub-tile best-t bounds phase 1 discovered. Measured SLOWER on the
-# dragon (block: 13.9 vs 12.0 ms; quarter: 24 ms): the in-kernel
-# monotone break already skips nearly everything the re-gate would kill,
-# so the second kernel launch + re-gate pass is pure overhead. Kept as a
-# measured A/B lever, default off; TRACER_P1M overrides the budget.
-TWO_PHASE = os.environ.get("TRACER_2PHASE", "0") != "0"
-PHASE1_EMITS = int(os.environ.get("TRACER_P1M", "48"))
 
 # Super-tile pixel geometry: 4x4 grid of 8x16 sub-tiles.
 SUP_H, SUP_W = 32, 64
@@ -222,7 +206,7 @@ def _sub_gates_raw(tb, ids, sb, prune_sub):
 
     ids: (ns, K); sb: (ns, NSUB, 16) packed sub bounds;
     prune_sub: (ns, NSUB) initial per-sub window top.
-    -> ok (ns, K, NSUB, NQ) bool, near (ns, K, NSUB, NQ) f32 (>= 0).
+    -> ok (ns, K, NSUB, NQ) bool.
     """
     qb = tb.qbox[jnp.clip(ids, 0, tb.qbox.shape[0] - 1)]  # (ns, K, NQ, 6)
     lo = qb[:, :, None, :, 0:3]  # (ns, K, 1, NQ, 3)
@@ -235,137 +219,33 @@ def _sub_gates_raw(tb, ids, sb, prune_sub):
     tmin_lo = sb[:, None, :, None, 12]
     alive = sb[:, None, :, None, 13] > 0.5
     near = jnp.maximum(near, 0.0)
-    ok = (
+    return (
         (near <= far)
         & (far >= tmin_lo)
         & (near < prune_sub[:, None, :, None])
         & alive
     )  # (ns, K, NSUB, NQ)
-    return ok, near
 
 
-def _sub_gates(tb, ids, sb, prune_sub, with_near=False):
-    """Per-(emission, sub-tile) gates packed to one 16-bit word per
-    emission (block-granularity emission mode). One dense XLA pass over
-    the top-K selected blocks — the Pallas kernel's hot loop then runs
-    without a single vector op for culled work. -> (ns, K) i32.
-
-    ``with_near=True`` additionally returns the tightened per-emission
-    conservative entry distance: min over gated (sub, quarter) pairs of
-    the per-sub quarter near — a strictly larger (= better-breaking)
-    bound than the super-tile-level treelet-box near, for free since the
-    per-pair nears are already computed for the gates.
-    """
-    ok, near = _sub_gates_raw(tb, ids, sb, prune_sub)
-    # One bit per sub-tile, set iff ANY quarter box passes — strictly
-    # tighter than a whole-block box test (the win of the quarter boxes)
-    # while keeping the kernel's gate read one SMEM word per visit (a
-    # per-sub nibble layout measured +10 ms/frame of scalar-load cost).
-    sub_ok = jnp.any(ok, axis=-1)  # (ns, K, NSUB)
-    powers = jnp.arange(NSUB, dtype=jnp.int32)
-    gm = jnp.sum(
-        sub_ok.astype(jnp.int32) << powers[None, None, :], axis=-1
-    )  # (ns, K)
-    if not with_near:
-        return gm
-    near_tight = jnp.min(
-        jnp.where(ok, near, _INF), axis=(2, 3)
-    )  # (ns, K)
-    return gm, near_tight
-
-
-def _quarter_emissions(tb, ids, enear, sb, prune_sub):
-    """Expand block emissions to near-sorted quarter-block emissions.
-
-    The super-level cull stays at treelet granularity (cheap dense pass
-    over NT blocks); the emission list the kernel consumes is refined to
-    quarter-blocks (T/NQ Morton-adjacent triangles) with per-sub gate
-    bits and per-quarter conservative entry distances. This is the
-    structural redundancy cut of PROFILE finding 11: the kernel's Möller
-    dispatch shrinks 4x in granularity while its per-visit hot loop is
-    unchanged (one SMEM gate word + one scalar entry bound per visit) —
-    in-kernel quarter dispatch measured *slower* (22-24 ms vs 13).
-
-    ids/enear: (ns, K) block emissions from the super cull.
-    -> qids, qnear, qgm: (ns, K*NQ) near-sorted; qn: (ns,) gated count.
-    """
-    from tracer.accel.treelet import NQ
-
-    ns, K = ids.shape
-    ok, near = _sub_gates_raw(tb, ids, sb, prune_sub)  # (ns, K, NSUB, NQ)
-    powers = jnp.arange(NSUB, dtype=jnp.int32)
-    qgm = jnp.sum(
-        ok.astype(jnp.int32) << powers[None, None, :, None], axis=2
-    )  # (ns, K, NQ)
-    # Entry bound for the shared stream: min over gated subs of the
-    # per-sub conservative entry (each is a valid lower bound for its
-    # sub's rays; the min is valid for every gated sub).
-    qnear = jnp.min(jnp.where(ok, near, _INF), axis=2)  # (ns, K, NQ)
-    qids = (
-        ids[:, :, None] * NQ + jnp.arange(NQ, dtype=ids.dtype)[None, None, :]
+def _dispatch(tb, eids, enear, en, gm, o, d, tmin, bt, bp, any_hit):
+    """Hits stage for one quarter-block emission round: the Triton kernel
+    when lowering for CUDA, the plain-XLA form when lowering for the CPU.
+    Any other platform has no hits stage and fails to lower."""
+    args = (tb, eids, enear, en, gm, o, d, tmin, bt, bp)
+    return jax.lax.platform_dependent(
+        *args,
+        cpu=lambda tb, eids, enear, en, gm, o, d, tmin, bt, bp: (
+            _phase_b_xla_q(tb, eids, en, o, d, tmin, bt, bp, any_hit)
+        ),
+        cuda=partial(super_hits.hits, any_hit=any_hit),
     )
-    gated = (qgm != 0) & (enear[:, :, None] < _INF)
-    KQ = K * NQ
-    key = jnp.where(gated, -qnear, -_INF).reshape(ns, KQ)
-    negnear, sel = jax.lax.top_k(key, KQ)  # full near-sort, nothing dropped
-    qids = jnp.take_along_axis(qids.reshape(ns, KQ), sel, axis=1)
-    qgm = jnp.take_along_axis(qgm.reshape(ns, KQ), sel, axis=1)
-    qn = jnp.sum(gated, axis=(1, 2), dtype=jnp.int32)
-    return qids, -negnear, qgm, qn
-
-
-def _qgate_ids(tb, qids, sb, prune_sub):
-    """Per-(quarter id, sub-tile) gates for an explicit quarter-id list.
-
-    Used by the phase-2 re-gate: same geometry test as _sub_gates_raw but
-    against *updated* per-sub prune bounds. qids: (ns, Kq) quarter ids;
-    -> gm (ns, Kq) i32 gate bits.
-    """
-    from tracer.accel.treelet import NQ
-
-    NTQ = tb.qbox.shape[0] * NQ
-    qb = tb.qbox.reshape(NTQ, 6)[jnp.clip(qids, 0, NTQ - 1)]  # (ns, Kq, 6)
-    lo = qb[:, :, None, 0:3]
-    hi = qb[:, :, None, 3:6]
-    o_lo = sb[:, None, :, 0:3]
-    o_hi = sb[:, None, :, 3:6]
-    d_lo = sb[:, None, :, 6:9]
-    d_hi = sb[:, None, :, 9:12]
-    near, far = interval_slab(lo, hi, o_lo, o_hi, d_lo, d_hi)
-    tmin_lo = sb[:, None, :, 12]
-    alive = sb[:, None, :, 13] > 0.5
-    ok = (
-        (near <= far)
-        & (far >= tmin_lo)
-        & (jnp.maximum(near, 0.0) < prune_sub[:, None, :])
-        & alive
-    )  # (ns, Kq, NSUB)
-    powers = jnp.arange(NSUB, dtype=jnp.int32)
-    return jnp.sum(ok.astype(jnp.int32) << powers[None, None, :], axis=-1)
-
-
-def _dispatch(tb, eids, enear, en, gm, o, d, tmin, bt, bp, any_hit,
-              quarter=False):
-    from tracer.kernels import treelet_hits as tk
-
-    if tk.use_pallas():
-        from tracer.kernels.super_hits import hits2
-
-        return hits2(
-            tb, eids, enear, en, gm, o, d, tmin, bt, bp, any_hit,
-            quarter=quarter,
-        )
-    if quarter:
-        return _phase_b_xla_q(tb, eids, en, o, d, tmin, bt, bp, any_hit)
-    from tracer.accel.packet import _phase_b_xla
-
-    return _phase_b_xla(tb, eids, en, o, d, tmin, bt, bp, any_hit)
 
 
 def _phase_b_xla_q(tb, qids, en, o, d, tmin, best_t, best_pid, any_hit):
-    """XLA fallback for quarter-block emissions (CPU correctness path)."""
+    """Plain-XLA hits stage: every emitted quarter-block against every ray
+    of its super-tile, with neither the per-sub-tile gates nor the break.
+    The CPU path and the reference the kernel is checked against."""
     from tracer.accel.packet import _moller_block
-    from tracer.accel.treelet import NQ
 
     NTQ = tb.qblocks.shape[0]
     K = qids.shape[1]
@@ -374,18 +254,19 @@ def _phase_b_xla_q(tb, qids, en, o, d, tmin, best_t, best_pid, any_hit):
         bt, bp = carry
         qid = jnp.clip(qids[:, k], 0, NTQ - 1)
         blk = tb.qblocks[qid]  # (ns, 16, TQ)
-        live = k < en
-        upper = jnp.where(live[:, None], bt, -_INF)
-        t, pid = _moller_block(blk, o, d, tmin, upper)
+        live = (k < en)[:, None]
+        t, pid = _moller_block(blk, o, d, tmin, bt)
         if any_hit:
-            bp = jnp.where(t < _INF, 1.0, bp)
+            bp = jnp.where(live & (t < _INF), 1.0, bp)
         else:
-            better = t < bt
+            better = live & (t < bt)
             bt = jnp.where(better, t, bt)
             bp = jnp.where(better, pid, bp)
         return (bt, bp), None
 
-    (bt, bp), _ = jax.lax.scan(step, (best_t, best_pid), jnp.arange(K))
+    (bt, bp), _ = jax.lax.scan(
+        step, (best_t, best_pid), jax.lax.iota(jnp.int32, K)
+    )
     return bt, bp
 
 
@@ -442,10 +323,7 @@ def _run(rays: Rays, tb: TreeletBvh, frame, any_hit: bool, K: int | None = None,
     negnear, ids = jax.lax.top_k(jnp.where(ok, -near, -_INF), K)
     enear = -negnear  # ascending conservative entry distance; INF pad
 
-    # Per-sub-tile gates for the selected emissions; emissions whose gate
-    # mask is empty (super frustum passed, every sub frustum culled) are
-    # compacted out by a second near-ordered top_k so the kernel never
-    # DMAs them.
+    # Per-sub-tile window tops for the quarter-block gates.
     prune_sub = jnp.max(
         jnp.where(
             tmax.reshape(n_super, NSUB, SUB) > tmin.reshape(n_super, NSUB, SUB),
@@ -455,12 +333,11 @@ def _run(rays: Rays, tb: TreeletBvh, frame, any_hit: bool, K: int | None = None,
         axis=2,
     )
     # Temporal t-bound seeding (closest-hit only): clamp each lane's
-    # initial best-t to last frame's hit distance (+ slack). The per-sub
-    # SMEM break bounds then start TIGHT instead of being discovered
-    # along the stream — the bound-discovery dynamics that set the
-    # engine's floor (PROFILE finding 18) are skipped. Gates/emissions
-    # keep the ORIGINAL windows, so the same emission list conservatively
-    # covers both the seeded pass and the repair pass below.
+    # initial best-t to last frame's hit distance (+ slack), so the
+    # per-sub-tile break bounds start tight instead of being discovered
+    # along the stream. Gates/emissions keep the ORIGINAL windows, so the
+    # same emission list conservatively covers both the seeded pass and
+    # the repair pass below.
     seeded_mask = None
     if seed_t is not None and not any_hit:
         st = tile(seed_t, fill=0.0)
@@ -470,76 +347,26 @@ def _run(rays: Rays, tb: TreeletBvh, frame, any_hit: bool, K: int | None = None,
     else:
         bt0 = tmax
     bp0 = jnp.full((n_super, SUPER), -1.0, jnp.float32)
-    # No compaction pass: the kernel skips empty-gate emissions before
-    # issuing their DMA (~3 scalar ops each, tracer.kernels.super_hits),
-    # so the near-ordered top-K list is dispatched as-is. The r4 design's
-    # second compaction top_k — and quarter mode's KQ-wide near-sort
-    # (_quarter_emissions) — were the dominant *prep* cost; the kernel-only
-    # A/B (tools/profile_visit.py) showed the quarter-granularity kernel
-    # is FASTER than block (7.9 vs 9.2 ms on dragon), inverting the
-    # finding-17 conclusion once prep is out of the picture.
-    en1 = jnp.minimum(total, K)
-    if QUARTER_EMIT:
-        from tracer.accel.treelet import NQ
+    # Quarter-block emissions: each selected block expands to its NQ
+    # quarters, each with one gate bit per sub-tile. Entries whose gate
+    # word is empty stay in the list; the hits stage skips them.
+    ok_q = _sub_gates_raw(tb, ids, sb, prune_sub)
+    powers = jnp.arange(NSUB, dtype=jnp.int32)
+    gm = jnp.sum(
+        ok_q.astype(jnp.int32) << powers[None, None, :, None], axis=2
+    ).reshape(n_super, K * NQ)
+    ids = (
+        ids[:, :, None] * NQ + jnp.arange(NQ, dtype=ids.dtype)[None, None, :]
+    ).reshape(n_super, K * NQ)
+    # Stream break key: the BLOCK near, replicated per quarter — the
+    # stream is monotone in it (quarter nears are tighter but would break
+    # the monotonicity the early exit relies on).
+    enear = jnp.repeat(enear, NQ, axis=1)
+    en1 = jnp.minimum(total, K) * NQ
+    KD = K * NQ  # dispatch batch width (emission ids are quarters)
+    ND = NT * NQ  # id-space size for the overflow sweep
 
-        ok_q, _near_q = _sub_gates_raw(tb, ids, sb, prune_sub)
-        powers = jnp.arange(NSUB, dtype=jnp.int32)
-        gm = jnp.sum(
-            ok_q.astype(jnp.int32) << powers[None, None, :, None], axis=2
-        ).reshape(n_super, K * NQ)  # (ns, K*NQ)
-        ids = (
-            ids[:, :, None] * NQ
-            + jnp.arange(NQ, dtype=ids.dtype)[None, None, :]
-        ).reshape(n_super, K * NQ)
-        # Stream break key: the BLOCK near, replicated per quarter — the
-        # stream is monotone in it (quarter nears are tighter but would
-        # break the monotonicity the early-exit relies on).
-        enear = jnp.repeat(enear, NQ, axis=1)
-        en1 = en1 * NQ
-        KD = K * NQ  # dispatch batch width (emission ids are quarters)
-        ND = NT * NQ  # id-space size for the overflow sweep
-        quarter = True
-        regate = lambda tail_ids, prune2: _qgate_ids(tb, tail_ids, sb, prune2)
-    else:
-        gm = _sub_gates(tb, ids, sb, prune_sub)
-        KD, ND, quarter = K, NT, False
-        regate = lambda tail_ids, prune2: _sub_gates(tb, tail_ids, sb, prune2)
-
-    M = PHASE1_EMITS
-    if TWO_PHASE and not any_hit and KD > M:
-        # Phase 1: nearest M emissions discover per-ray bounds cheaply
-        # (the near stream carries most closest hits).
-        bt, bp = _dispatch(
-            tb, ids[:, :M], enear[:, :M], jnp.minimum(en1, M),
-            gm[:, :M], o, d, tmin, bt0, bp0, any_hit, quarter=quarter,
-        )
-        # Phase 2: re-gate the tail against the per-sub best-t bounds
-        # phase 1 found. The skipped phase-1 emissions need no replay:
-        # the in-kernel break only skips work the re-gate also rejects
-        # (both compare entry distance vs the same monotone bounds).
-        alive0 = (tmax > tmin).reshape(n_super, NSUB, SUB)
-        prune2 = jnp.max(
-            jnp.where(alive0, bt.reshape(n_super, NSUB, SUB), -_BIG),
-            axis=2,
-        )
-        tail_ids = ids[:, M:]
-        tail_near = enear[:, M:]
-        gm2 = regate(tail_ids, prune2)
-        gated2 = (gm2 != 0) & (tail_near < _INF)
-        key2 = jnp.where(gated2, -tail_near, -_INF)
-        negn2, sel2 = jax.lax.top_k(key2, KD - M)
-        ids2 = jnp.take_along_axis(tail_ids, sel2, axis=1)
-        gmp2 = jnp.take_along_axis(gm2, sel2, axis=1)
-        en2 = jnp.sum(gated2, axis=1, dtype=jnp.int32)
-        bt, bp = _dispatch(
-            tb, ids2, -negn2, en2, gmp2, o, d, tmin, bt, bp, any_hit,
-            quarter=quarter,
-        )
-    else:
-        bt, bp = _dispatch(
-            tb, ids, enear, en1, gm, o, d, tmin, bt0, bp0, any_hit,
-            quarter=quarter,
-        )
+    bt, bp = _dispatch(tb, ids, enear, en1, gm, o, d, tmin, bt0, bp0, any_hit)
 
     if seeded_mask is not None:
         # Exact repair: a seeded lane that found NOTHING under its clamped
@@ -559,7 +386,7 @@ def _run(rays: Rays, tb: TreeletBvh, frame, any_hit: bool, K: int | None = None,
                 gm, o, d, tmin,
                 jnp.where(unresolved, tmax, -_INF),
                 jnp.full_like(bp, -1.0),
-                any_hit, quarter=quarter,
+                any_hit,
             )
             return (
                 jnp.where(unresolved, btr, bt),
@@ -590,7 +417,7 @@ def _run(rays: Rays, tb: TreeletBvh, frame, any_hit: bool, K: int | None = None,
             en_r = jnp.where(overflow, jnp.clip(ND - base, 0, KD), 0)
             bt, bp = _dispatch(
                 tb, ids_r, zeros, en_r, full_mask, o, d, tmin, bt, bp,
-                any_hit, quarter=quarter,
+                any_hit,
             )
             return r + 1, bt, bp
 

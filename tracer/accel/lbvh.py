@@ -68,8 +68,8 @@ class BvhBuffers:
     nodes; a leaf has ``count > 0`` and covers ``prim_ids[first : first+count]``
     — the same information as the reference ``GpuNode {min, offset_ptr, max,
     n_prims}`` (hlbvh.rs:195-234) with explicit child links instead of the
-    preorder +1 convention (gather-based traversal has no locality win from
-    preorder on TPU).
+    preorder +1 convention (gather-based traversal gets no locality win from
+    preorder).
     """
 
     node_min: np.ndarray  # (M, 3) f32

@@ -1,45 +1,71 @@
-"""ctypes bindings for the native C++ LBVH builder (``native/lbvh.cpp``).
+"""ctypes bindings for the native C++ builders (``native/*.cpp``).
 
 The reference's builders are native Rust with rayon parallelism
-(``/root/reference/src/data_structures/hlbvh.rs``); ours is native C++ with
-OpenMP, loaded via ctypes (no pybind11 in this image). Falls back cleanly:
-``available()`` is False if the shared library is missing and cannot be
-compiled, and ``tracer.accel.lbvh.build`` remains the NumPy reference path.
+(``/root/reference/src/data_structures/hlbvh.rs``); ours are native C++
+(OpenMP for the LBVH), loaded via ctypes. Each library is built from the
+tracked source on first use, into ``build/native/<hash>/`` where the hash
+covers the source bytes and the compile command, so a library built from
+other sources or flags is never loaded. ``available()`` is False when the
+library cannot be built, and ``tracer.accel.lbvh.build`` remains the NumPy
+reference path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
+import tempfile
 
 import numpy as np
 
 from tracer.accel.lbvh import BvhBuffers
 from tracer.util import StageTimer
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
-_SO_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "liblbvh.so"))
-_SRC_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "lbvh.cpp"))
+_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
+_NATIVE_DIR = os.path.join(_ROOT, "native")
+_BUILD_DIR = os.path.join(_ROOT, "build", "native")
+
+_LBVH_FLAGS = ("-O3", "-fopenmp", "-shared", "-fPIC")
+# -ffp-contract=off: NumPy never fuses mul+add, and the BSP builders are
+# contractually bit-identical.
+_BSP_FLAGS = ("-O3", "-ffp-contract=off", "-shared", "-fPIC")
+
+
+def _build(name: str, flags: tuple) -> str | None:
+    """Path of ``lib<name>.so`` built from ``native/<name>.cpp`` with
+    ``flags``, compiling it if this (source, flags) pair has no build yet.
+    None when the compiler fails."""
+    src = os.path.join(_NATIVE_DIR, f"{name}.cpp")
+    with open(src, "rb") as f:
+        code = f.read()
+    key = hashlib.sha256(code + " ".join(("g++",) + flags).encode())
+    out_dir = os.path.join(_BUILD_DIR, key.hexdigest()[:16])
+    so = os.path.join(out_dir, f"lib{name}.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(out_dir, exist_ok=True)
+    # Build under a temporary name and rename into place, so concurrent
+    # processes never load a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    try:
+        subprocess.run(
+            ["g++", *flags, "-o", tmp, src],
+            check=True, capture_output=True, timeout=300,
+        )
+        os.replace(tmp, so)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return so
+
 
 _lib = None
 _tried = False
-
-
-def _compile() -> bool:
-    try:
-        subprocess.run(
-            [
-                "g++", "-O3", "-march=native", "-fopenmp", "-shared",
-                "-fPIC", "-o", _SO_PATH, _SRC_PATH,
-            ],
-            check=True,
-            capture_output=True,
-            timeout=120,
-        )
-        return True
-    except Exception:
-        return False
 
 
 def _load():
@@ -47,11 +73,11 @@ def _load():
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not os.path.exists(_SO_PATH):
-        if not (os.path.exists(_SRC_PATH) and _compile()):
-            return None
+    so = _build("lbvh", _LBVH_FLAGS)
+    if so is None:
+        return None
     try:
-        lib = ctypes.CDLL(_SO_PATH)
+        lib = ctypes.CDLL(so)
     except OSError:
         return None
     f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
@@ -119,8 +145,6 @@ def build(
 # Native BSP builder (native/bsp.cpp) — same two-phase pattern, separate .so.
 # ---------------------------------------------------------------------------
 
-_BSP_SO = os.path.abspath(os.path.join(_NATIVE_DIR, "libbsp.so"))
-_BSP_SRC = os.path.abspath(os.path.join(_NATIVE_DIR, "bsp.cpp"))
 _bsp_lib = None
 _bsp_tried = False
 
@@ -130,19 +154,11 @@ def _bsp_load():
     if _bsp_lib is not None or _bsp_tried:
         return _bsp_lib
     _bsp_tried = True
-    if not os.path.exists(_BSP_SO):
-        try:
-            subprocess.run(
-                # -ffp-contract=off: NumPy never fuses mul+add, and the
-                # builders are contractually bit-identical.
-                ["g++", "-O3", "-march=native", "-ffp-contract=off",
-                 "-shared", "-fPIC", "-o", _BSP_SO, _BSP_SRC],
-                check=True, capture_output=True, timeout=120,
-            )
-        except Exception:
-            return None
+    so = _build("bsp", _BSP_FLAGS)
+    if so is None:
+        return None
     try:
-        lib = ctypes.CDLL(_BSP_SO)
+        lib = ctypes.CDLL(so)
     except OSError:
         return None
     f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")

@@ -1,19 +1,18 @@
 """Tile-packet traversal over a treelet-cut BVH (tracer.accel.treelet).
 
-The TPU-native redesign of the reference's per-thread BVH walk
-(``/root/reference/res/shaders/bvh.wgsl:154-191``): instead of one divergent
-stack per ray (per-lane gathers + scatters — the slowest ops on TPU), a
-*tile* of spatially coherent rays (an 8x8 pixel block by default) shares one
+A redesign of the reference's per-thread BVH walk
+(``/root/reference/res/shaders/bvh.wgsl:154-191``): instead of one
+divergent stack per ray (per-lane gathers + scatters), a *tile* of
+spatially coherent rays (a 16x8 pixel block by default) shares one
 traversal of the top tree:
 
-* node fetch = one 64-word row per **tile** per step (a (C,) gather over the
-  tile-chunk, thousands of times fewer rows than per-ray traversal);
+* node fetch = one 64-word row per **tile** per step (a (C,) gather over
+  the tile-chunk, thousands of times fewer rows than per-ray traversal);
 * the 8-wide slab test runs for all rays of the tile at once — dense
-  (C, 8, TILE) VPU math;
+  (C, 8, TILE) math;
 * treelet hits are not descended but **emitted** to a per-tile worklist in
   near order; the dense ray-tile x triangle-block intersection runs in a
-  separate streaming stage (Pallas kernel ``tracer.kernels.treelet_hits`` on
-  TPU, an XLA scan otherwise).
+  separate stage (``_phase_b_xla``, a scan over emission slots).
 
 Rounds: a tile pauses when its emission buffer fills; after the hits stage
 updates per-ray best-t, traversal resumes with the tighter pruning bound.
@@ -28,15 +27,16 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from tracer.accel.treelet import TreeletBvh
 from tracer.kernels.intersect import Rays
 from tracer.util import pytree_dataclass
 
-_INF = jnp.float32(3.0e38)
+_INF = np.float32(3.0e38)  # NumPy scalar: see tracer.accel.flat._INF
 MAX_IT = 1 << 17
 TILE_H = 8
-TILE_W = 16  # 16x8 pixel packets: TILE = 128 = one full VPU lane dim
+TILE_W = 16  # 16x8 pixel packets: TILE = 128 rays
 TILE = TILE_H * TILE_W
 K_EMIT = 64  # per-round treelet emission capacity per tile
 CHUNK_TILES = 4096  # lockstep tile-chunk (phase A retires chunks independently)
@@ -253,8 +253,7 @@ def _phase_a_chunk(top, D: int, K: int, st: TravState, o, d, tmin, prune):
 
 
 # ---------------------------------------------------------------------------
-# Phase B (XLA fallback): dense ray-tile x treelet-block intersection.
-# The TPU path is the Pallas kernel in tracer.kernels.treelet_hits.
+# Phase B: dense ray-tile x treelet-block intersection.
 # ---------------------------------------------------------------------------
 
 
@@ -324,16 +323,6 @@ def _phase_b_xla(tb: TreeletBvh, eids, en, o, d, tmin, best_t, best_pid, any_hit
     return bt, bp
 
 
-def _dispatch_hits(tb, eids, enear, en, o, d, tmin, best_t, best_pid, any_hit):
-    from tracer.kernels import treelet_hits as tk
-
-    if tk.use_pallas():
-        return tk.hits(
-            tb, eids, en, o, d, tmin, best_t, best_pid, any_hit, enear=enear
-        )
-    return _phase_b_xla(tb, eids, en, o, d, tmin, best_t, best_pid, any_hit)
-
-
 # ---------------------------------------------------------------------------
 # Entry points.
 # ---------------------------------------------------------------------------
@@ -390,11 +379,9 @@ def _run(rays: Rays, tb: TreeletBvh, frame, any_hit: bool):
             prune = bt
         st, (eids, enear, en) = phase_a_all(st, prune)
         flat = lambda x: x.reshape(nc * C, *x.shape[2:])
-        bt2, bp2 = _dispatch_hits(
+        bt2, bp2 = _phase_b_xla(
             tb,
             flat(eids),
-            None,  # walk emissions are only approximately near-ordered:
-            # the kernel's monotone early-break would be unsound here
             flat(en),
             flat(och),
             flat(dch),

@@ -3,7 +3,7 @@ per-thread stack loops.
 
 The reference traverses with a ``var<private>`` node stack per GPU thread
 (``/root/reference/res/shaders/bvh.wgsl:127-191``) and a branch stack for the
-BSP (``bsp.wgsl:7-81``). On TPU a wavefront of N rays advances in *lockstep*:
+BSP (``bsp.wgsl:7-81``). Here a wavefront of N rays advances in *lockstep*:
 the stack is an (N, DEPTH) array, every iteration gathers each lane's current
 node, tests the slab, and either descends or pops — divergence is handled by
 masks, not branches. The loop is a ``lax.while_loop`` bounded by an iteration
@@ -29,7 +29,7 @@ MAX_ITERS = 1000  # safety bound, mirroring bvh.wgsl:164
 def _leaf_hit(rays, best_t, vertices, indices, prim_ids, first, count, max_leaf):
     """Test up to ``max_leaf`` primitives of each lane's leaf; returns
     (t, prim) best candidates. Static unroll over the leaf slots — every
-    lane tests its own gathered triangle per slot (pure VPU gathers)."""
+    lane tests its own gathered triangle per slot."""
     t_best = best_t
     id_best = jnp.full(best_t.shape, -1, jnp.int32)
     for k in range(max_leaf):

@@ -1,30 +1,27 @@
-"""Treelet-cut BVH — the packet-traversal acceleration structure.
+"""Treelet-cut BVH — the acceleration structure of the "bvh" traversal.
 
-TPU rationale: per-ray BVH walks are gather-bound (one random row fetch per
-lane per step) and stack-bound (per-lane scatters) — the two operations the
-TPU is worst at. This structure splits the tree at a *treelet cut* so both
-disappear:
+A per-ray BVH walk gathers one random node row per ray per step and keeps
+a private stack per ray. This structure splits the tree at a *treelet
+cut* so that most of that work becomes dense:
 
-* **Top tree** (above the cut): an 8-ary collapse of the binary LBVH, small
-  enough to live in VMEM (~tens of KB for an 870k-triangle mesh at T=32).
-  It is traversed once per *tile of rays* (not per ray), so node fetches are
-  per-tile scalar rows and the 8-wide slab tests are dense (8, TILE) VPU ops.
-* **Treelet blocks** (below the cut): each treelet packs <= T triangles into
-  one dense (T, 16) f32 block laid out for lane-broadcast math — the whole
-  ray-tile is tested against the whole block as a single (T, TILE) dense op,
-  streamed from HBM by a double-buffered DMA in the Pallas hits kernel
-  (tracer.kernels.treelet_hits).
+* **Top tree** (above the cut): an 8-ary collapse of the binary LBVH,
+  small (tens of KB for an 870k-triangle mesh). The packet engine
+  (``tracer.accel.packet``) walks it once per *tile of rays*, so node
+  fetches are per-tile rows and the 8-wide slab tests are dense
+  (8, TILE) array ops; the flat engine (``tracer.accel.flat``) skips it
+  and culls the treelet boxes directly.
+* **Treelet blocks** (below the cut): each treelet packs <= T triangles
+  into one dense feature-major (16, T) f32 block — a whole ray tile is
+  tested against a whole block (or a T/NQ quarter of it) as one dense
+  (rays, triangles) Möller evaluation, with no per-ray gather.
 
 The reference's analogous component is the flattened binary ``GpuNode`` BVH
 walked per GPU thread with a private stack
 (``/root/reference/src/data_structures/hlbvh.rs:195-234``,
-``res/shaders/bvh.wgsl:154-191``); treelet cut + tile packets is its
-TPU-native redesign (the GPU hides gather latency with warp parallelism; the
-TPU instead amortizes one traversal over a coherent pixel tile).
+``res/shaders/bvh.wgsl:154-191``).
 
-Block layout is **feature-major** (16 feature rows on the sublane axis, T=128
-triangles on the lane axis) so every HBM/VMEM buffer is natively
-(1,128)-lane-tiled — no padded relayout copies at the Pallas boundary:
+Block layout is **feature-major** (16 feature rows, T triangles along the
+last axis), so one feature of a run of triangles is contiguous:
   row 0:3   v0            row 9     prim id (exact float, ids < 2^24)
   row 3:6   e0 = v1 - v0  row 10    valid (1.0 / 0.0)
   row 6:9   e1 = v2 - v0  row 11:14 geometric normal n = cross(e0, e1)
@@ -41,7 +38,6 @@ from __future__ import annotations
 
 from collections import deque
 from dataclasses import dataclass
-from functools import partial
 
 import numpy as np
 import jax
@@ -64,10 +60,9 @@ class TreeletBvh:
     blocks: jnp.ndarray  # (NT, 16, T) f32, feature-major
     t_lo: jnp.ndarray  # (NT, 3) f32 treelet root AABB lo (flat phase A)
     t_hi: jnp.ndarray  # (NT, 3) f32 treelet root AABB hi
-    box_table: jnp.ndarray  # (NT, 8) f32 [lo3, hi3, pad2] (super_hits kernel)
+    box_table: jnp.ndarray  # (NT, 8) f32 [lo3, hi3, pad2]
     qbox: jnp.ndarray  # (NT, NQ, 6) f32 quarter-block AABBs (Morton-local)
     qblocks: jnp.ndarray  # (NT*NQ, 16, T/NQ) f32 contiguous quarter view
-    mxu: jnp.ndarray  # (NT, 16, 2T) f32 matmul-form block table
     depth: int  # max top-tree descent depth (stack bound)
     T: int  # triangles per block
 
@@ -77,9 +72,9 @@ class TreeletHost:
     """Host-side treelet build product: everything *except* the big
     (NT, 16, T) block table, which is assembled on device from ``pids``
     (``assemble_blocks``) — packing 870k triangles into feature-major
-    blocks is a pure gather, exactly the op the TPU does in ~ms and host
-    NumPy spends seconds on. Also the unit that the scene disk cache
-    persists (small: ~6 MB vs the 94 MB block table)."""
+    blocks is one device gather, where host NumPy is slow. Also the unit
+    that the scene disk cache persists (small: ~6 MB vs the 94 MB block
+    table)."""
 
     top: np.ndarray  # (R, 8, 8) f32
     pids: np.ndarray  # (NT, T) i32 primitive id per block slot
@@ -91,21 +86,11 @@ class TreeletHost:
     T: int
 
 
-def _want_mxu() -> bool:
-    import os
-
-    return os.environ.get("TRACER_MXU", "0") != "0"
-
-
-@partial(jax.jit, static_argnames=("with_mxu",))
-def assemble_blocks(verts, idx, pids, valid, with_mxu: bool = False):
+@jax.jit
+def assemble_blocks(verts, idx, pids, valid):
     """Gather + edge/normal precompute for the (NT, 16, T) block table and
     the (NT, NQ, 6) quarter-block AABBs, on device (one fused gather per
-    vertex slot; see PROFILE.md finding 7).
-
-    ``with_mxu``: also build the (NT, 16, 2T) matmul-form table for the
-    TRACER_MXU Möller lever — 188 MB of HBM and a second full assembly
-    pass the default engine never touches, so it is opt-in."""
+    vertex slot)."""
     NT, T = pids.shape
     tri = idx[pids]  # (NT, T, 3)
     v = verts[tri]  # (NT, T, 3, 3)
@@ -126,54 +111,16 @@ def assemble_blocks(verts, idx, pids, valid, with_mxu: bool = False):
         jnp.zeros_like(kpl),  # row 15: sublane padding
     ]
     blocks = jnp.stack(rows, axis=1)  # (NT, 16, T)
-    # Contiguous quarter-block view (NT*NQ, 16, T/NQ): the streaming
-    # kernel's quarter-granularity DMAs copy one contiguous 16*T/NQ*4-byte
-    # chunk instead of 16 strided 1-row pieces (strided descriptors
-    # measured slower; the duplicate costs HBM capacity, not bandwidth).
+    # Contiguous quarter-block view (NT*NQ, 16, T/NQ): the hits kernel
+    # loads one quarter-block's rows as contiguous runs.
     qblocks = (
         blocks.reshape(NT, 16, NQ, T // NQ)
         .transpose(0, 2, 1, 3)
         .reshape(NT * NQ, 16, T // NQ)
     )
-    # MXU block table (NT, 16, 2T): the Möller beta/gamma numerators are
-    # bilinear in (per-ray, per-triangle) features —
-    #   beta_num  = (s x d)·e1 =  d·(e1 x v0) - (o x d)·e1
-    #   gamma_num = -(s x d)·e0 = -d·(e0 x v0) + (o x d)·e0
-    # so one (SUB, 16) x (16, 2T) matmul computes both for a whole
-    # sub-tile x block pair on the MXU. Rows 0:6 are the contraction
-    # features (lane group A = beta columns [0:T], group B = gamma
-    # columns [T:2T]); rows 6:12 are free storage for the VPU epilogue
-    # (n, k, pid, valid) because the ray matrix is zero there.
-    if with_mxu:
-        zero = jnp.zeros_like(kpl)
-        bA = jnp.cross(e1, v0)
-        bB = -jnp.cross(e0, v0)
-        mxu_rows = [
-            (bA[..., 0], bB[..., 0]),
-            (bA[..., 1], bB[..., 1]),
-            (bA[..., 2], bB[..., 2]),
-            (-e1[..., 0], e0[..., 0]),
-            (-e1[..., 1], e0[..., 1]),
-            (-e1[..., 2], e0[..., 2]),
-            (nrm[..., 0], zero),
-            (nrm[..., 1], zero),
-            (nrm[..., 2], zero),
-            (kpl, zero),
-            (pidf, zero),
-            (valid.astype(jnp.float32), zero),
-            (zero, zero),
-            (zero, zero),
-            (zero, zero),
-            (zero, zero),
-        ]
-        mxu = jnp.stack(
-            [jnp.concatenate([a, b], axis=-1) for a, b in mxu_rows], axis=1
-        )  # (NT, 16, 2T)
-    else:
-        mxu = jnp.zeros((1, 1, 1), jnp.float32)  # placeholder leaf
     # Quarter AABBs: consecutive slots are Morton-adjacent, so each T/NQ
     # run is spatially local — the finer boxes gate the Möller work inside
-    # an already-DMA'd block at no extra traffic.
+    # an already-loaded block at no extra traffic.
     vq = v.reshape(NT, NQ, T // NQ, 3, 3)
     vmask = valid.reshape(NT, NQ, T // NQ, 1, 1)
     qlo = jnp.min(jnp.where(vmask, vq, jnp.float32(3e38)), axis=(2, 3))
@@ -181,12 +128,12 @@ def assemble_blocks(verts, idx, pids, valid, with_mxu: bool = False):
     # Empty quarters (partial blocks) collapse to a far point box, NOT the
     # +/-3e38 sentinels: those overflow the interval slab products to inf
     # and an inverted-infinite box *passes* the gate, spuriously gating
-    # every sub-tile against every partial block (measured +11 ms/frame).
+    # every sub-tile against every partial block.
     empty = ~jnp.any(valid.reshape(NT, NQ, T // NQ), axis=-1)  # (NT, NQ)
     far_pt = jnp.float32(1.0e30)
     qlo = jnp.where(empty[..., None], far_pt, qlo)
     qhi = jnp.where(empty[..., None], far_pt, qhi)
-    return blocks, jnp.concatenate([qlo, qhi], axis=-1), qblocks, mxu
+    return blocks, jnp.concatenate([qlo, qhi], axis=-1), qblocks
 
 
 def from_host(
@@ -195,8 +142,8 @@ def from_host(
 ) -> TreeletBvh:
     """TreeletHost + device geometry -> TreeletBvh (blocks gathered on
     device). ``dev``: [pids, top, t_lo, t_hi, box_table, counts] already
-    on device (they ride the packed geometry upload, saving the ~0.6 s
-    fixed link cost per array — see ``device.pack_upload``)."""
+    on device (they ride the packed geometry upload, one transfer instead
+    of six — see ``device.pack_upload``)."""
     T = host.T
     if dev:
         pids, top, t_lo, t_hi, box_table, counts = dev
@@ -210,9 +157,9 @@ def from_host(
     valid = (
         jnp.arange(T, dtype=jnp.int32)[None, :] < counts[:, None]
     )
-    blocks, qbox, qblocks, mxu = assemble_blocks(
+    blocks, qbox, qblocks = assemble_blocks(
         jnp.asarray(verts_dev, jnp.float32), jnp.asarray(idx_dev, jnp.int32),
-        pids, valid, with_mxu=_want_mxu(),
+        pids, valid,
     )
     return TreeletBvh(
         top=top,
@@ -222,7 +169,6 @@ def from_host(
         box_table=box_table,
         qbox=qbox,
         qblocks=qblocks,
-        mxu=mxu,
         depth=int(host.depth),
         T=T,
     )

@@ -1,20 +1,19 @@
-"""Wide (8-ary) BVH — the TPU-shaped traversal structure.
+"""Wide (8-ary) BVH — a fat-row traversal structure.
 
-Why this exists: on TPU, XLA gathers cost ~3 ns *per row* regardless of row
-width (measured up to 128 words/row), while scatters cost ~3.5x a gather.
-A binary BVH walk does many narrow gathers + stack scatters per step — the
-worst possible shape. This structure inverts that:
+Why this exists: a binary BVH walk over a lockstep wavefront does many
+narrow per-lane gathers plus stack scatters per step. This structure
+trades them for fewer, wider accesses:
 
 * **one fat row per traversal step**: a node row packs EITHER 8 children
   AABBs + refs (inner) OR up to 8 whole triangles + their ids (leaf) into a
   single 96-word gather;
 * **zero scatters**: ordered depth-first traversal uses a base-8 *trail*
   integer (Laine-style restart trail) + parent refs instead of a stack;
-* **8-wide slab tests and rank selection** are dense VPU arithmetic.
+* **8-wide slab tests and rank selection** are dense array arithmetic.
 
 The reference's analogous component is the flattened binary ``GpuNode`` BVH +
 per-thread stack (``/root/reference/src/data_structures/hlbvh.rs:195-234``,
-``res/shaders/bvh.wgsl:127-191``); this is its TPU-native redesign, built by
+``res/shaders/bvh.wgsl:127-191``); this is a wavefront redesign of it, built by
 collapsing the binary LBVH from ``tracer.accel.lbvh``.
 
 Row layout (width 96 f32, ints bitcast):
@@ -201,7 +200,7 @@ def _traverse(rays: Rays, wb: WideBvh, any_hit: bool):
         is_leaf = visit & (leaf_count > 0)
 
         # ---- Leaf: test K triangles, vectorized over the slot axis (dense
-        # VPU math; the data is already in-row from the single table gather).
+        # math; the data is already in-row from the single table gather).
         tri = row[:, 2:74].reshape(n, K, 9)
         pid = _unpack_i32(row[:, 74:82])  # (N, K)
         v0 = tri[:, :, 0:3]
@@ -260,8 +259,7 @@ def _traverse(rays: Rays, wb: WideBvh, any_hit: bool):
 
         # ---- Per-level sibling stack row at this lane's level. The stack is
         # small and dense (N, D, 8); reads/writes go through one-hot level
-        # masks — dense VPU selects — because XLA gather/scatter with per-lane
-        # indices is orders of magnitude slower than a masked select here.
+        # masks — dense selects — instead of per-lane gathers/scatters.
         lvl = jnp.clip(level, 0, D - 1)
         lvl_hot = (
             jax.lax.broadcasted_iota(jnp.int32, (n, D), 1) == lvl[:, None]

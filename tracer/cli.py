@@ -301,7 +301,7 @@ def main(argv=None) -> int:
 
             mesh = S.make_ray_mesh()
             scene_r = S.replicate_scene(scene, mesh)
-            st = S.shard_state(state or P.init_state(cfg), mesh)
+            st = S.shard_state(state or P.init_state(cfg), cfg, mesh)
             step = S.sharded_step(mesh)
             for i in range(int(st.iteration), args.samples):
                 stats.begin()

@@ -23,7 +23,6 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from tracer.render import integrator
 from tracer.render.scene import Scene, SceneConfig
@@ -40,8 +39,9 @@ def _diffable(cfg: SceneConfig) -> SceneConfig:
     return dataclasses.replace(cfg, loop="scan")
 
 
-def render_radiance(scene: Scene, cfg: SceneConfig, iteration=0):
-    """(N, 3) linear radiance for one sample pass at ``iteration``."""
+def render_radiance(scene: Scene, cfg: SceneConfig, iteration=0, band=None):
+    """(N, 3) linear radiance for one sample pass at ``iteration`` (over the
+    rows ``band`` selects, as in ``integrator.render_sample``)."""
     cfg = _diffable(cfg)
     scene = replace(
         scene,
@@ -49,15 +49,16 @@ def render_radiance(scene: Scene, cfg: SceneConfig, iteration=0):
             scene.uniforms, iteration=jnp.asarray(iteration, jnp.uint32)
         ),
     )
-    return integrator.render_sample(scene, cfg)
+    return integrator.render_sample(scene, cfg, band)
 
 
-def render_mean(scene: Scene, cfg: SceneConfig, num_samples: int = 1):
+def render_mean(scene: Scene, cfg: SceneConfig, num_samples: int = 1,
+                band=None):
     """Mean radiance over ``num_samples`` progressive passes (all
     differentiable; more samples = lower-variance gradients)."""
-    acc = jnp.zeros((cfg.height * cfg.width, 3), jnp.float32)
+    acc = 0.0
     for it in range(num_samples):
-        acc = acc + render_radiance(scene, cfg, it)
+        acc = acc + render_radiance(scene, cfg, it, band)
     return acc / jnp.float32(num_samples)
 
 
@@ -66,47 +67,17 @@ def l2_loss(scene: Scene, cfg: SceneConfig, target, num_samples: int = 1):
     return jnp.mean((img - target) ** 2)
 
 
-@partial(jax.jit, static_argnames=("cfg", "num_samples", "scatter"))
-def grad_scene_jit(scene: Scene, cfg: SceneConfig, target,
-                   num_samples: int = 1, scatter: str = "pallas"):
+@partial(jax.jit, static_argnames=("cfg", "num_samples"))
+def grad_scene(scene: Scene, cfg: SceneConfig, target, num_samples: int = 1):
     """Full Scene-pytree gradient of the L2 loss (float leaves only).
 
-    ``scatter`` picks the vertex-cotangent scatter implementation for this
-    trace (static: part of the jit cache key). Use ``grad_scene`` to have
-    it resolved from the input shardings automatically.
-    """
-    from tracer.geometry.device import scatter_override
+    One device; ``tracer.parallel.shard.sharded_grad`` is the same gradient
+    with the rays split over a device mesh."""
 
     def loss_fn(s):
         return l2_loss(s, cfg, target, num_samples)
 
-    with scatter_override(scatter):
-        return jax.grad(loss_fn, allow_int=True)(scene)
-
-
-def _spans_multiple_devices(*trees) -> bool:
-    for leaf in jax.tree.leaves(trees):
-        try:
-            sh = leaf.sharding
-            if len(sh.device_set) > 1:
-                return True
-        except Exception:
-            continue
-    return False
-
-
-def grad_scene(scene: Scene, cfg: SceneConfig, target, num_samples: int = 1):
-    """Full Scene-pytree gradient of the L2 loss (float leaves only).
-
-    Single-device inputs trace the sorted Pallas vertex scatter (the fast
-    path); multi-device inputs trace the plain scatter-add, whose GSPMD
-    partitioning is local-scatter + psum (a global sort would all-gather
-    the cotangent stream — see ``device.scatter_override``).
-    """
-    from tracer.geometry.device import _scatter_mode
-
-    scatter = "add" if _spans_multiple_devices(scene, target) else _scatter_mode()
-    return grad_scene_jit(scene, cfg, target, num_samples, scatter)
+    return jax.grad(loss_fn, allow_int=True)(scene)
 
 
 def directional_derivative_ad(scene, cfg, target, get, set_, direction,

@@ -19,7 +19,7 @@ Reproduces the behavior of ``Mesh::load`` + tobj with
 * multiple ``o``/``g`` models are concatenated with index offsetting
   (``mesh.rs:171-184``).
 
-Pure-NumPy host code: mesh parsing is I/O-bound setup, not a TPU hot path.
+Pure-NumPy host code: mesh parsing is I/O-bound setup, not a device hot path.
 """
 
 from __future__ import annotations

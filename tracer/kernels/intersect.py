@@ -1,4 +1,4 @@
-"""Vectorized ray-primitive intersection kernels (jnp, VPU-shaped).
+"""Vectorized ray-primitive intersection kernels (plain jnp).
 
 Each WGSL intersection routine of the reference (sphere quadratic with
 two-root select ``w9e2.wgsl:353-380``, plane ``:386-404``, Möller-style
@@ -151,9 +151,10 @@ def node_slab(o, inv_d, tmin, tmax, lo, hi):
     """Branch-free node AABB test for traversal inner loops.
 
     The reference found a branchy early-out slab (``intersect_bb2``,
-    ``bvh.wgsl:14-60``) beat a select-based one on GPU; on the TPU VPU the
-    opposite holds — all lanes run in lockstep, so the fused min/max form is
-    the fast one. Shapes: o/inv_d (..., 3); lo/hi broadcastable to them.
+    ``bvh.wgsl:14-60``) beat a select-based one per GPU thread; over a
+    lockstep wavefront every lane evaluates every test anyway, so the fused
+    min/max form is used. Shapes: o/inv_d (..., 3); lo/hi broadcastable to
+    them.
     """
     t0 = (lo - o) * inv_d
     t1 = (hi - o) * inv_d
@@ -206,12 +207,10 @@ def _ray_features(rays: Rays):
 
 def mesh_brute_force(rays: Rays, vertices, indices, chunk: int = 512):
     """Closest-hit over *all* triangles — the reference's w5 brute-force loop
-    (``w5e2.wgsl:230-240``), MXU-shaped: one (N, 10) x (10, 4*chunk)
-    matmul yields every (ray, tri) pair's Möller numerators with no
-    (N, chunk, 3) rank-3 broadcast temps (the naive broadcast form
-    measured 5.95 ms for 262k rays x 128 tris — memory-bound on ~2 GB of
-    fusion temps; this form is ~10x less traffic). Division-free
-    validity: beta >= 0 etc. test numerator*denom signs.
+    (``w5e2.wgsl:230-240``) as a matmul: one (N, 10) x (10, 4*chunk)
+    product yields every (ray, tri) pair's Möller numerators with no
+    (N, chunk, 3) rank-3 broadcast temps. Division-free validity:
+    beta >= 0 etc. test numerator*denom signs.
 
     Returns (t, tri_id) with tri_id == -1 for miss. ``chunk`` is clamped
     to the lane-rounded triangle count (a 2048-pad on the 12-triangle
@@ -232,8 +231,8 @@ def mesh_brute_force(rays: Rays, vertices, indices, chunk: int = 512):
         best_t, best_id = carry
         idx_c, valid_c, base = xs
         feat, _ = _moller_features(vertices, idx_c, valid_c)
-        # HIGHEST: default TPU matmul rounds through bf16 — fatal for
-        # intersection geometry; the 3-pass form keeps f32 accuracy.
+        # HIGHEST: a reduced-precision f32 matmul (TF32 or bf16 passes)
+        # would move intersection geometry; HIGHEST keeps f32 accuracy.
         out = jax.lax.dot(
             rm, feat, precision=jax.lax.Precision.HIGHEST,
             preferred_element_type=jnp.float32,

@@ -1,29 +1,26 @@
-"""Pallas TPU kernel: super-tile streaming hits, gates precomputed in XLA.
+"""Pallas (Triton) kernel: gated, early-breaking hits for coherent rays.
 
-v3 of the streaming hits stage (see ``tracer.kernels.treelet_hits`` for v1
-and PROFILE.md for the measured history). One grid step serves a 2048-ray
-super-tile (16 sub-tiles of 128 rays) consuming a near-ordered emission
-list of treelet blocks. Design deltas vs v2, all aimed at the per-visit
-fixed cost that dominated (~0.9-1.6 us/block with zero triangle work):
+The hot half of the flat frustum engine (``tracer.accel.flat``). The XLA
+side culls treelet blocks per 2048-ray super-tile, expands the survivors to
+a near-ordered list of quarter-blocks (``tb.qblocks``, T/NQ triangles
+each) and packs, per emission, one 16-bit gate word: bit ``s`` set iff
+sub-tile ``s`` (128 rays) may intersect that quarter-block.
 
-* **No in-kernel pretest.** The per-(block, sub-tile) frustum gates are
-  computed *outside* by one dense XLA pass over the already-selected
-  emissions (``tracer.accel.flat``) and arrive as a 16-bit mask per
-  emission in SMEM — the kernel's hot loop does zero vector work and zero
-  vector->scalar extracts for culled sub-tiles.
-* **Per-sub break bounds live in SMEM scalars** (updated only when a
-  sub-tile actually runs a Möller test), so the per-sub skip test
-  ``enear[k] < ub[s]`` is pure scalar-unit arithmetic.
-* Emissions with an empty gate mask were already compacted out by the
-  XLA side, so every DMA'd block has at least one live sub-tile.
+One program serves one 128-ray sub-tile (grid = super-tiles x 16
+sub-tiles). It walks its super-tile's emission list in near order:
 
-The shared near-ordered stream still breaks globally once every sub-tile's
-bound beats the next block's conservative entry distance.
+* entries whose gate bit for this sub-tile is clear are skipped;
+* the walk stops once the next entry's conservative entry distance
+  reaches the sub-tile's current bound (the largest best-t over its live
+  rays, kept in registers) — no later block can improve any of its rays;
+* a gated entry runs the Möller test of the 128 rays against the
+  quarter-block, loaded in ``TC``-triangle chunks sized for registers.
 
-Reference analog: the per-thread BVH walk + leaf loop of
-``/root/reference/res/shaders/bvh.wgsl:154-191``; here one "thread" is a
-2048-ray super-tile whose sixteen 128-ray packets share a single DMA
-stream.
+The arithmetic is the plane-form Möller test of
+``tracer.accel.packet._moller_block`` (the plain-XLA reference that
+``tracer.accel.flat._phase_b_xla_q`` runs). Reference analog: the
+per-thread BVH walk + leaf loop of ``res/shaders/bvh.wgsl:154-191``, with
+a sub-tile of rays in place of one thread.
 """
 
 from __future__ import annotations
@@ -33,320 +30,128 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from tracer.accel.treelet import NQ
-from tracer.kernels.treelet_hits import _interpret, _moller_tile, _INF
-
-
-def _moller_tile_mxu(blk, rm, rt, upper, T: int):
-    """Möller via MXU: blk is the (16, 2T) matmul-form block
-    (tracer.accel.treelet assemble_blocks), rm the (TILE, 16) ray feature
-    matrix [d, o x d, 0...], rt the (TILE, 8) transposed rays. One
-    (TILE, 16) x (16, 2T) f32 matmul yields beta/gamma numerators for
-    every (ray, triangle) pair; the VPU epilogue is ~halved vs the pure
-    elementwise form (the two cross-product/dot chains move to the MXU).
-    """
-    out = jax.lax.dot_general(
-        rm, blk, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )  # (TILE, 2T)
-    bn = out[:, 0:T]
-    gn = out[:, T : 2 * T]
-    c = lambda j: blk[j : j + 1, 0:T]  # (1, T) epilogue rows
-    rx = lambda j: rt[:, j : j + 1]  # (TILE, 1)
-    ox, oy, oz = rx(0), rx(1), rx(2)
-    dx, dy, dz = rx(3), rx(4), rx(5)
-    tn = rx(6)
-    nx, ny, nz = c(6), c(7), c(8)
-    denom = nx * dx + ny * dy + nz * dz
-    inv = 1.0 / denom
-    t = (c(9) - (nx * ox + ny * oy + nz * oz)) * inv
-    beta = bn * inv
-    gamma = gn * inv
-    ok = (
-        (beta >= 0.0)
-        & (gamma >= 0.0)
-        & (beta + gamma <= 1.0)
-        & (t >= tn)
-        & (t < upper)
-        & (c(11) > 0.5)
-    )
-    tc = jnp.where(ok, t, _INF)
-    tbest = jnp.min(tc, axis=1, keepdims=True)
-    pidw = jnp.where(tc <= tbest, c(10), _INF)
-    pbest = jnp.min(pidw, axis=1, keepdims=True)
-    pbest = jnp.where(tbest < _INF, pbest, -1.0)
-    return tbest, pbest
+from jax.experimental.pallas import triton as pltriton
 
 SUB = 128  # rays per sub-tile (8x16 pixels)
 NSUB = 16  # sub-tiles per super-tile
 SUPER = SUB * NSUB  # rays per super-tile (32x64 pixels)
 
-NBUF = 4  # DMA pipeline depth
+# Triangles per Möller chunk, so (SUB, TC) tiles stay in registers, and
+# warps per program: the fastest pair of a sweep on the H100 (tc 4-64,
+# 2-8 warps); Triton's pipeline-stage count made no measurable difference.
+TC = 8
+NUM_WARPS = 4
+
+_INF = 3.0e38  # plain float: a jnp scalar would be a captured constant
 
 
-def _kernel(
-    ids_ref,
-    en_ref,
-    enear_ref,
-    gm_ref,
-    blocks_hbm,
-    rays_ref,
-    best_ref,
-    out_ref,
-    rt_s,
-    bt_s,
-    bp_s,
-    ub_smem,
-    blk_s,
-    rm_s,
-    sems,
-    *,
-    K: int,
-    any_hit: bool,
-    quarter,
-    TQ: int,
-    bit_loop: bool,
-    mxu: bool,
-):
-    n = en_ref[0, 0, 0]
+def _kernel(ids_ref, enear_ref, gm_ref, en_ref, qblk_ref, rays_ref,
+            best_ref, out_ref, *, K: int, TQ: int, tc: int, any_hit: bool):
+    s = pl.program_id(0)
+    sub = pl.program_id(1)
+    lanes = pl.ds(sub * SUB, SUB)
+    ray = lambda j: rays_ref[s, j, lanes][:, None]  # (SUB, 1)
+    ox, oy, oz = ray(0), ray(1), ray(2)
+    dx, dy, dz = ray(3), ray(4), ray(5)
+    tn = ray(6)
+    top = best_ref[s, 0, lanes]
+    bp0 = best_ref[s, 1, lanes]
+    # Any-hit: occluded lanes drop out of every window test and of the
+    # break bound.
+    bt0 = jnp.where(bp0 > 0.0, -_INF, top) if any_hit else top
+    n = en_ref[s]
 
-    # Transpose rays once; park per-sub state in VMEM scratch.
-    rtv = jnp.transpose(rays_ref[0])  # (SUPER, 8)
-    rt_s[:, :] = rtv
-    if mxu:
-        # Ray feature matrix for the beta/gamma matmul: [d, o x d, 0...].
-        o3 = rtv[:, 0:3]
-        d3 = rtv[:, 3:6]
-        oxd = jnp.cross(o3, d3)
-        rm_s[:, :] = jnp.concatenate(
-            [d3, oxd, jnp.zeros((SUPER, 10), jnp.float32)], axis=1
+    def chunk(eid, j, carry):
+        bt, bp = carry
+        cols = pl.ds(j * tc, tc)
+        c = lambda r: qblk_ref[eid, r, cols][None, :]  # (1, tc)
+        nx, ny, nz = c(11), c(12), c(13)
+        inv = 1.0 / (nx * dx + ny * dy + nz * dz)  # (SUB, tc)
+        t = (c(14) - (nx * ox + ny * oy + nz * oz)) * inv
+        sx = c(0) - ox
+        sy = c(1) - oy
+        sz = c(2) - oz
+        nomx = sy * dz - sz * dy
+        nomy = sz * dx - sx * dz
+        nomz = sx * dy - sy * dx
+        beta = (nomx * c(6) + nomy * c(7) + nomz * c(8)) * inv
+        gamma = -(nomx * c(3) + nomy * c(4) + nomz * c(5)) * inv
+        ok = (
+            (beta >= 0.0)
+            & (gamma >= 0.0)
+            & (beta + gamma <= 1.0)
+            & (t >= tn)
+            & (t < bt[:, None])
+            & (c(10) > 0.5)
         )
-    bt0 = jnp.transpose(best_ref[0, 0:1, :])  # (SUPER, 1)
-    bp0 = jnp.transpose(best_ref[0, 1:2, :])
-    if any_hit:
-        bt0 = jnp.where(bp0 > 0.0, -_INF, bt0)
-    bt_s[:, :] = bt0
-    bp_s[:, :] = bp0
-    # Per-sub break bound = max best-t over the sub's 128 lanes, as SMEM
-    # scalars (16 extracts once per super-tile; the hot loop reads them on
-    # the scalar unit only).
-    for s in range(NSUB):
-        ub_smem[s] = jnp.max(bt0[s * SUB : (s + 1) * SUB, :])
-
-    def dma(slot, k):
-        eid = ids_ref[0, 0, k]
-        if quarter == "strided":
-            # Emission ids address quarter-blocks: qid = tid*NQ + q. The
-            # copy slices TQ Morton-adjacent triangle columns straight out
-            # of the (16, T) block — 16 rows of TQ*4 contiguous bytes — no
-            # extra device memory, but a 16-piece strided descriptor.
-            src = blocks_hbm.at[eid // NQ, :, pl.ds((eid % NQ) * TQ, TQ)]
-        else:
-            # Block mode or contiguous quarter mode (blocks_hbm is then
-            # the (NT*NQ, 16, TQ) qblocks table): one contiguous chunk.
-            src = blocks_hbm.at[eid]
-        return pltpu.make_async_copy(src, blk_s.at[slot], sems.at[slot])
-
-    for w in range(NBUF - 1):
-
-        @pl.when((w < n) & (gm_ref[0, 0, w] != 0))
-        def _(w=w):
-            dma(w, w).start()
+        tc_ = jnp.where(ok, t, _INF)
+        tbest = jnp.min(tc_, axis=1)  # (SUB,)
+        if any_hit:
+            hit = tbest < _INF
+            return jnp.where(hit, -_INF, bt), jnp.where(hit, 1.0, bp)
+        pid = jnp.min(
+            jnp.where(tc_ <= tbest[:, None], c(9), _INF), axis=1
+        )
+        better = tbest < bt
+        return jnp.where(better, tbest, bt), jnp.where(better, pid, bp)
 
     def cond(carry):
-        k, gub = carry
-        return (k < n) & (enear_ref[0, 0, k] < gub)
-
+        k, bt, _ = carry
+        near = enear_ref[s, jnp.minimum(k, K - 1)]
+        return (k < n) & (near < jnp.max(bt))
 
     def body(carry):
-        k, _gub = carry
+        k, bt, bp = carry
+        eid = ids_ref[s, k]
+        gated = ((gm_ref[s, k] >> sub) & 1) != 0
+        bt, bp = jax.lax.cond(
+            gated,
+            lambda c: jax.lax.fori_loop(
+                0, TQ // tc, functools.partial(chunk, eid), c
+            ),
+            lambda c: c,
+            (bt, bp),
+        )
+        return k + 1, bt, bp
 
-        # Emissions whose gate mask is empty are skipped BEFORE their DMA
-        # is issued (the mask lives in SMEM, readable ahead) — so an
-        # uncompacted emission list costs ~3 scalar ops per dead entry,
-        # and the XLA side needs no second compaction top_k. Index clipped:
-        # the predicate does not short-circuit the SMEM read.
-        kpre = jnp.minimum(k + NBUF - 1, K - 1)
-
-        @pl.when((k + NBUF - 1 < n) & (gm_ref[0, 0, kpre] != 0))
-        def _():
-            dma((k + NBUF - 1) % NBUF, k + NBUF - 1).start()
-
-        ek = enear_ref[0, 0, k]
-        gm = gm_ref[0, 0, k]
-
-        def run_sub(s, off):
-            blk = blk_s[k % NBUF]  # (16, T)
-            # Möller this sub-tile against the block. Bit s of gm: the
-            # sub may intersect (quarter-AABB tightened in XLA).
-            # Quarter-granularity *testing* in-kernel measured slower
-            # (22-24 ms vs 13: extra branches + small ops cost more than
-            # the culled work), as did per-sub nibble gates in SMEM
-            # (+10 ms): one gate word per visit is the measured optimum.
-            rt = rt_s[pl.ds(off, SUB), :]
-            bt = bt_s[pl.ds(off, SUB), :]
-            bp = bp_s[pl.ds(off, SUB), :]
-            if mxu:
-                rmx = rm_s[pl.ds(off, SUB), :]
-                t, pid = _moller_tile_mxu(blk, rmx, rt, bt, T=TQ)
-            else:
-                t, pid = _moller_tile(blk, rt, bt)
-            if any_hit:
-                hitk = t < _INF
-                bp = jnp.where(hitk, 1.0, bp)
-                bt = jnp.where(hitk, -_INF, bt)
-            else:
-                better = t < bt
-                bt = jnp.where(better, t, bt)
-                bp = jnp.where(better, pid, bp)
-            bt_s[pl.ds(off, SUB), :] = bt
-            bp_s[pl.ds(off, SUB), :] = bp
-            ub_smem[s] = jnp.max(bt)
-
-        @pl.when(gm != 0)
-        def _():
-            dma(k % NBUF, k).wait()
-            if bit_loop:
-                # Iterate only the SET bits of the gate word (avg ~4 of
-                # 16): per-visit scalar work tracks gated subs, not NSUB.
-                def sub_cond(g):
-                    return g != 0
-
-                def sub_body(g):
-                    low = g & (-g)
-                    s = (
-                        jnp.where((low & 0xAAAA) != 0, 1, 0)
-                        + jnp.where((low & 0xCCCC) != 0, 2, 0)
-                        + jnp.where((low & 0xF0F0) != 0, 4, 0)
-                        + jnp.where((low & 0xFF00) != 0, 8, 0)
-                    )
-
-                    @pl.when(ek < ub_smem[s])
-                    def _():
-                        run_sub(s, s * SUB)
-
-                    return g & (g - 1)
-
-                jax.lax.while_loop(sub_cond, sub_body, gm)
-            else:
-                for s in range(NSUB):
-                    @pl.when(((gm >> s) & 1 != 0) & (ek < ub_smem[s]))
-                    def _(s=s):
-                        run_sub(s, s * SUB)
-
-        gub = ub_smem[0]
-        for s in range(1, NSUB):
-            gub = jnp.maximum(gub, ub_smem[s])
-        return k + 1, gub
-
-    k, _ = jax.lax.while_loop(cond, body, (jnp.int32(0), _INF))
-
-    # Retire DMAs already in flight past the break point (only entries
-    # whose gate mask is non-empty ever started one).
-    for w in range(NBUF - 1):
-
-        @pl.when((k + w < n) & (gm_ref[0, 0, jnp.minimum(k + w, K - 1)] != 0))
-        def _(w=w):
-            dma((k + w) % NBUF, k + w).wait()
-
-    bt = bt_s[:, :]
-    if any_hit:
-        bt = jnp.transpose(best_ref[0, 0:1, :])  # window top unchanged
-    out_ref[0, 0:1, :] = jnp.transpose(bt)
-    out_ref[0, 1:2, :] = jnp.transpose(bp_s[:, :])
+    _, bt, bp = jax.lax.while_loop(cond, body, (jnp.int32(0), bt0, bp0))
+    out_ref[s, 0, lanes] = top if any_hit else bt
+    out_ref[s, 1, lanes] = bp
 
 
-def hits2(tb, eids, enear, en, gatemask, o, d, tmin, best_t, best_pid,
-          any_hit: bool, quarter: bool = False):
-    """Super-tile streaming hits; emissions pre-gated per sub-tile.
+def hits(tb, eids, enear, en, gatemask, o, d, tmin, best_t, best_pid,
+         any_hit: bool, *, interpret: bool = False, tc: int = TC):
+    """Consume one near-ordered quarter-block emission list per super-tile.
 
     o, d: (n_super, SUPER, 3); tmin/best_t/best_pid: (n_super, SUPER);
-    eids/enear: (n_super, K) near-ordered; gatemask: (n_super, K) i32,
-    bit s set iff sub-tile s may intersect that block (quarter-AABB
-    tightened, see ``tracer.accel.flat._sub_gates``).
+    eids/enear/gatemask: (n_super, K) quarter ids (tid*NQ + q), their
+    conservative entry distances (non-decreasing) and gate words; en:
+    (n_super,) live entries. best_pid is carried as f32 (ids are exact
+    below 2^24); for any-hit it is the occlusion flag (> 0). Returns the
+    updated (best_t, best_pid).
 
-    ``quarter=True``: eids address quarter-blocks (tid*NQ + q, TQ = T/NQ
-    triangles each) — 4x finer Möller granularity. DMAs stream the
-    contiguous ``tb.qblocks`` table (TRACER_QDMA=strided A/Bs the
-    zero-copy strided slicing of ``tb.blocks`` instead).
+    ``interpret=True`` runs the kernel in the Pallas interpreter (tests);
+    ``tc`` is the triangle chunk width (clamped to the quarter-block).
     """
-    import os
-
     n_super = tmin.shape[0]
-    T = tb.T
-    TQ = T // NQ if quarter else T
     K = eids.shape[1]
-    NT = tb.blocks.shape[0] * (NQ if quarter else 1)
-    strided = os.environ.get("TRACER_QDMA", "contig") == "strided"
-    qmode = ("strided" if strided else "contig") if quarter else False
-    # MXU Möller (TRACER_MXU=1): stream the matmul-form (16, 2T) blocks
-    # and compute beta/gamma numerators on the MXU. Block emission only,
-    # and only when the build actually assembled the (opt-in) mxu table.
-    mxu = (
-        os.environ.get("TRACER_MXU", "0") != "0"
-        and not quarter
-        and tb.mxu.shape[0] == tb.blocks.shape[0]
-    )
-    if mxu:
-        hbm = tb.mxu
-    else:
-        hbm = tb.blocks if (not quarter or strided) else tb.qblocks
-    BW = 2 * TQ if mxu else TQ  # streamed block lane width
+    TQ = tb.qblocks.shape[2]
+    tc = min(tc, TQ)
+    assert TQ % tc == 0, (TQ, tc)
     rays8 = jnp.stack(
         [o[..., 0], o[..., 1], o[..., 2], d[..., 0], d[..., 1], d[..., 2],
          tmin, best_t],
         axis=1,
     )  # (n_super, 8, SUPER)
-    best = jnp.stack([best_t, best_pid], axis=1)
-    ids2 = jnp.clip(eids, 0, NT - 1).reshape(n_super, 1, K)
-    en2 = en.reshape(n_super, 1, 1)
-    enear2 = enear.reshape(n_super, 1, K)
-    gm2 = gatemask.reshape(n_super, 1, K)
-
+    best = jnp.stack([best_t, best_pid], axis=1)  # (n_super, 2, SUPER)
+    ids = jnp.clip(eids, 0, tb.qblocks.shape[0] - 1).astype(jnp.int32)
     out = pl.pallas_call(
-        functools.partial(
-            _kernel, K=K, any_hit=any_hit, quarter=qmode, TQ=TQ,
-            bit_loop=os.environ.get("TRACER_KLOOP", "bits") == "bits",
-            mxu=mxu,
-        ),
-        grid=(n_super,),
-        in_specs=[
-            pl.BlockSpec(
-                (1, 1, K), lambda i: (i, 0, 0), memory_space=pltpu.SMEM
-            ),
-            pl.BlockSpec(
-                (1, 1, 1), lambda i: (i, 0, 0), memory_space=pltpu.SMEM
-            ),
-            pl.BlockSpec(
-                (1, 1, K), lambda i: (i, 0, 0), memory_space=pltpu.SMEM
-            ),
-            pl.BlockSpec(
-                (1, 1, K), lambda i: (i, 0, 0), memory_space=pltpu.SMEM
-            ),
-            pl.BlockSpec(memory_space=pl.ANY),  # blocks stay in HBM
-            pl.BlockSpec(
-                (1, 8, SUPER), lambda i: (i, 0, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, 2, SUPER), lambda i: (i, 0, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, 2, SUPER), lambda i: (i, 0, 0), memory_space=pltpu.VMEM
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((SUPER, 8), jnp.float32),  # transposed rays
-            pltpu.VMEM((SUPER, 1), jnp.float32),  # best t
-            pltpu.VMEM((SUPER, 1), jnp.float32),  # best pid
-            pltpu.SMEM((NSUB,), jnp.float32),  # per-sub break bound
-            pltpu.VMEM((NBUF, 16, BW), jnp.float32),  # pipelined blocks
-            pltpu.VMEM((SUPER, 16), jnp.float32),  # mxu ray features
-            pltpu.SemaphoreType.DMA((NBUF,)),
-        ],
+        functools.partial(_kernel, K=K, TQ=TQ, tc=tc, any_hit=any_hit),
+        grid=(n_super, NSUB),
         out_shape=jax.ShapeDtypeStruct((n_super, 2, SUPER), jnp.float32),
-        interpret=_interpret(),
-    )(ids2, en2, enear2, gm2, hbm, rays8, best)
+        compiler_params=pltriton.CompilerParams(num_warps=NUM_WARPS),
+        interpret=interpret,
+        name="flat_hits",
+    )(ids, enear.astype(jnp.float32), gatemask.astype(jnp.int32),
+      en.astype(jnp.int32), tb.qblocks, rays8, best)
     return out[:, 0], out[:, 1]

@@ -3,7 +3,7 @@
 ``rotate_to_normal`` is the Frisvad/Duff branchless ONB rotation used by the
 reference for cosine-hemisphere sampling
 (``/root/reference/res/shaders/w9e2.wgsl:169-181``). It is branch-free by
-construction — ideal for the TPU VPU where every lane executes the same code.
+construction — every lane of a wavefront executes the same code.
 """
 
 from __future__ import annotations

@@ -4,14 +4,14 @@ The reference seeds each pixel with an NVIDIA TEA-style xorshift hash of
 ``(pixel_index, iteration)`` and then draws floats from an MCG31 LCG
 (``/root/reference/res/shaders/w9e2.wgsl:133-164``). Because the state is a
 single u32 derived from a counter, the generator is *stateless across frames*
-— exactly the right shape for TPU: a fully vectorized uint32 hash with no
+— a fully vectorized uint32 hash with no
 sequential dependency between pixels, and deterministic images for fixed
 (pixel, iteration), which makes renders reproducible and the backward pass
 replayable from the same seeds.
 
 All functions are vectorized over arbitrary leading shapes and work under
 ``jax.jit``/Pallas (pure uint32 ops). ``numpy`` arrays also work (the CPU
-oracle uses this same module so oracle and TPU renders consume identical
+oracle uses this same module so oracle and device renders consume identical
 random streams).
 """
 

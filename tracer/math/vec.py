@@ -2,9 +2,9 @@
 
 The reference keeps a generic ``Vec3<T>``/``Vec4<T>`` tuple type with
 elementwise ops (``/root/reference/src/data_structures/vector.rs:5-242``).
-On TPU the natural representation is a batched array whose *leading* axes are
+Here the natural representation is a batched array whose *leading* axes are
 the ray/pixel batch and whose trailing axis is the component axis of size 3 —
-XLA lays the batch on the 8x128 VPU lanes and the component axis unrolls.
+XLA vectorizes over the batch and the component axis unrolls.
 All helpers below are shape-polymorphic over leading axes and work for both
 ``jax.numpy`` and ``numpy`` inputs (used by the CPU oracle).
 """

@@ -3,7 +3,7 @@
 This is a *second implementation* of the reference's WGSL algorithms
 (``/root/reference/res/shaders/w*.wgsl``), deliberately written in the
 straight-line scalar style of the shaders rather than the wavefront style of
-``tracer.render.integrator`` — it is the golden reference the TPU renderer is
+``tracer.render.integrator`` — it is the golden reference the JAX renderer is
 tested against (SURVEY.md section 4: the reference lacked golden-image tests;
 we add them). Slow by design; use small resolutions in tests.
 

@@ -1,21 +1,21 @@
-"""Multi-host runtime bring-up (SURVEY section 5.8).
+"""Multi-process runtime bring-up (SURVEY section 5.8).
 
-The reference is single-process/single-GPU; the TPU-native scale-out path
-is ``jax.distributed`` + a global device mesh. This module is the entry
-point the CLI and benches call before any jax computation when running on
-a multi-host slice:
+The reference is single-process/single-GPU; the scale-out path here is
+``jax.distributed`` + a global device mesh. This module is the entry point
+the CLI and benches call before any jax computation when running as one
+process of several:
 
-* on Cloud TPU pods, ``jax.distributed.initialize()`` auto-discovers the
-  coordinator from the TPU metadata — no arguments needed;
-* elsewhere, the standard env triplet (``JAX_COORDINATOR_ADDRESS``,
-  ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``) is honoured;
-* single-process runs (the common case, incl. tests) are a no-op.
+* the standard env triplet (``JAX_COORDINATOR_ADDRESS``,
+  ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``) is passed to
+  ``jax.distributed.initialize``; nothing is discovered automatically;
+* single-process runs (the common case, incl. tests and one host driving
+  all of its GPUs) are a no-op.
 
 After initialization, ``tracer.parallel.shard.make_ray_mesh`` over
-``jax.devices()`` spans all hosts: the "rays" axis crosses DCN between
-hosts and ICI within, scene buffers replicate per device, and each host
-feeds/reads only its addressable shard (``shard.gather_image`` assembles
-via an all-gather when needed).
+``jax.devices()`` spans all processes: the "rays" axis crosses hosts,
+scene buffers replicate per device, and each process feeds/reads only its
+addressable shard (``shard.gather_image`` assembles via an all-gather when
+needed).
 """
 
 from __future__ import annotations

@@ -1,25 +1,28 @@
 """Multi-device rendering: pixel-tile sharding over a ``jax.sharding.Mesh``.
 
 The reference is single-GPU; its parallelism is the rasterizer over pixels
-(SURVEY.md section 2.3). The TPU-native scale-out maps that same data axis
-onto the device mesh:
+(SURVEY.md section 2.3). The scale-out maps that same data axis onto the
+device mesh:
 
-* pixels (rows of the flat W*H wavefront) shard over the ``"rays"`` mesh
-  axis — each device traces its tile; no cross-device traffic during the walk
-  because scene + accel buffers are replicated (small scenes) on every device;
+* pixels shard over the ``"rays"`` mesh axis in bands of whole image rows,
+  each a whole number of the flat engine's 32-row super-tiles, so every
+  device traces the super-tiles one device would. Each band is rendered
+  under ``shard_map``: scene + accel buffers are replicated on every
+  device, so the walk moves no data between devices;
 * the progressive accumulator shards the same way, so accumulation is
   device-local (the all_gather happens only at image export);
-* gradients of replicated scene parameters are ``psum``-reduced by
-  ``shard_map``'s reverse-mode transposition automatically (a sharded-batch /
-  replicated-param VJP *is* the gradient all-reduce, riding ICI).
+* gradients of replicated scene parameters are each device's band
+  gradient, ``psum``-reduced over the mesh.
 
-Multi-host: the same code runs under ``jax.distributed.initialize`` with a
-(hosts, chips_per_host) mesh; the "rays" axis spans both (DCN x ICI), and
-each host feeds only its addressable shard.
+The mesh is 1-D: the GPUs of a host reach each other all to all, so its
+shape follows the algorithm alone. Multi-host: the same code runs under
+``jax.distributed.initialize``, the "rays" axis spans every process's
+devices, and each process feeds only its addressable shard.
 """
 
 from __future__ import annotations
 
+import re
 from functools import partial
 
 import jax
@@ -27,12 +30,27 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from tracer.accel.flat import SUP_H
+from tracer.diff.grad import render_mean
 from tracer.render import integrator
 from tracer.render.progressive import ProgressiveState
 from tracer.render.scene import Scene, SceneConfig
 from tracer.util import replace
 
 RAY_AXIS = "rays"
+
+COLLECTIVES = (
+    "all-reduce",
+    "all-gather",
+    "collective-permute",
+    "all-to-all",
+    "reduce-scatter",
+)
+_DTYPE_BYTES = {
+    "f64": 8, "f32": 4, "bf16": 2, "f16": 2,
+    "s64": 8, "s32": 4, "u64": 8, "u32": 4, "pred": 1,
+}
+_SHAPE = re.compile(r"\b([a-z]+[0-9]*)\[([0-9,]*)\]")
 
 
 def make_ray_mesh(devices=None) -> Mesh:
@@ -41,29 +59,36 @@ def make_ray_mesh(devices=None) -> Mesh:
     return Mesh(np.asarray(devices), (RAY_AXIS,))
 
 
-def pad_to(n: int, k: int) -> int:
-    return -(-n // k) * k
+def band_rows(height: int, k: int) -> int:
+    """Image rows per device: the fewest whole super-tile rows that cover
+    ``height`` over ``k`` devices."""
+    return -(-height // (SUP_H * k)) * SUP_H
 
 
-def shard_state(state: ProgressiveState, mesh: Mesh) -> ProgressiveState:
-    """Lay out the accumulator sharded over the ray axis (pad rows so the
-    leading dim divides the mesh)."""
+def shard_rows(x, cfg: SceneConfig, mesh: Mesh):
+    """Lay out a per-pixel (H*W, ...) array in the banded layout: pad with
+    zero rows to ``k * band_rows * W`` and shard over the ray axis. The
+    first H*W rows stay the image in row-major order."""
     k = mesh.devices.size
-    n = state.accum.shape[0]
-    n_pad = pad_to(n, k)
-    accum = jnp.pad(state.accum, ((0, n_pad - n), (0, 0)))
-    accum = jax.device_put(
-        accum, NamedSharding(mesh, P(RAY_AXIS, None))
-    )
-    seed_t = jax.device_put(
-        jnp.pad(state.seed_t, (0, n_pad - n)),
-        NamedSharding(mesh, P(RAY_AXIS)),
-    )
+    n = cfg.width * cfg.height
+    n_pad = k * band_rows(cfg.height, k) * cfg.width
+    x = jnp.asarray(x)[:n]
+    x = jnp.pad(x, ((0, n_pad - n),) + ((0, 0),) * (x.ndim - 1))
+    # P(RAY_AXIS) names the leading axis only: the layout shard_map hands
+    # back, so a step's output feeds the next call without a retrace.
+    return jax.device_put(x, NamedSharding(mesh, P(RAY_AXIS)))
+
+
+def shard_state(state: ProgressiveState, cfg: SceneConfig,
+                mesh: Mesh) -> ProgressiveState:
+    """Lay out the accumulator (and seed) in the banded layout."""
     # Commit the iteration counter replicated too: otherwise call 2 of the
     # step (iteration now a committed device array) retraces with a new
     # input layout.
     iteration = jax.device_put(state.iteration, NamedSharding(mesh, P()))
-    return ProgressiveState(accum=accum, iteration=iteration, seed_t=seed_t)
+    return ProgressiveState(accum=shard_rows(state.accum, cfg, mesh),
+                            iteration=iteration,
+                            seed_t=shard_rows(state.seed_t, cfg, mesh))
 
 
 def replicate_scene(scene: Scene, mesh: Mesh) -> Scene:
@@ -73,13 +98,42 @@ def replicate_scene(scene: Scene, mesh: Mesh) -> Scene:
     return jax.tree.map(lambda x: jax.device_put(x, spec), scene)
 
 
-def sharded_step(mesh: Mesh, donate: bool = True):
-    """Build the jitted sharded progressive step for ``mesh``.
+# Scene fields that hold traversal structures only.
+ACCEL_FIELDS = ("bvh", "wide", "tb", "bsp")
 
-    Uses jit-with-shardings (GSPMD): the wavefront partitions over the ray
-    axis automatically; XLA inserts no collectives in the forward pass
-    because every non-batch input is replicated.
-    """
+
+def _zero_cotangent(x):
+    """The zero gradient ``jax.grad(allow_int=True)`` gives a leaf."""
+    if jnp.issubdtype(x.dtype, jnp.floating):
+        return jnp.zeros_like(x)
+    return np.zeros(x.shape, jax.dtypes.float0)
+
+
+def _with_derived(scene: Scene, derived) -> Scene:
+    """``scene`` with its derived data (the traversal structures and the
+    (T, 20) attribute table) set to ``derived``."""
+    accel, table = derived
+    scene = replace(scene, **accel)
+    if scene.geom is None:
+        return scene
+    return replace(scene, geom=replace(scene.geom, tri_table=table))
+
+
+def _derived(scene: Scene):
+    accel = {f: getattr(scene, f) for f in ACCEL_FIELDS}
+    return accel, None if scene.geom is None else scene.geom.tri_table
+
+
+def _band(cfg: SceneConfig, mesh: Mesh):
+    """This device's (row0, rows) inside ``shard_map``."""
+    rows = band_rows(cfg.height, mesh.devices.size)
+    return jax.lax.axis_index(RAY_AXIS) * rows, rows
+
+
+def sharded_step(mesh: Mesh, donate: bool = True):
+    """Build the jitted sharded progressive step for ``mesh``: each device
+    renders and accumulates its band of rows, with the same temporal
+    seeding as ``progressive.step`` (state from ``shard_state``)."""
 
     @partial(
         jax.jit,
@@ -87,25 +141,86 @@ def sharded_step(mesh: Mesh, donate: bool = True):
         **({"donate_argnames": ("state",)} if donate else {}),
     )
     def step(scene: Scene, cfg: SceneConfig, state: ProgressiveState):
-        scene = replace(
-            scene, uniforms=replace(scene.uniforms, iteration=state.iteration)
-        )
-        n = cfg.width * cfg.height
-        result = integrator.render_sample(scene, cfg)
-        n_pad = state.accum.shape[0]
-        if n_pad != n:
-            result = jnp.pad(result, ((0, n_pad - n), (0, 0)))
-        accum = integrator.accumulate(result, state.accum, state.iteration)
-        accum = jax.lax.with_sharding_constraint(
-            accum, NamedSharding(mesh, P(RAY_AXIS, None))
-        )
-        # Temporal seeding stays single-chip for now (the Pallas flat
-        # engine is not traced under GSPMD); the hint rides along unused.
+        def band(scene, accum, seed_t, iteration):
+            scene = replace(
+                scene, uniforms=replace(scene.uniforms, iteration=iteration)
+            )
+            result, seed_t = integrator.render_sample_seeded(
+                scene, cfg, seed_t, _band(cfg, mesh)
+            )
+            return integrator.accumulate(result, accum, iteration), seed_t
+
+        rows = P(RAY_AXIS)
+        accum, seed_t = jax.shard_map(
+            band, mesh=mesh, in_specs=(P(), rows, rows, P()),
+            out_specs=(rows, rows), check_vma=False,
+        )(scene, state.accum, state.seed_t, state.iteration)
         return ProgressiveState(
-            accum=accum, iteration=state.iteration + 1, seed_t=state.seed_t
+            accum=accum, iteration=state.iteration + 1, seed_t=seed_t
         )
 
     return step
+
+
+def sharded_grad(mesh: Mesh):
+    """Build the jitted sharded form of ``tracer.diff.grad.grad_scene``:
+    ``grad(scene, cfg, target, num_samples=1)`` with a replicated scene and
+    the target laid out by ``shard_rows``. Each device differentiates the
+    L2 loss of its band (rows past H masked out); the scene gradient is the
+    ``psum`` of the band gradients."""
+
+    @partial(jax.jit, static_argnames=("cfg", "num_samples"))
+    def grad(scene: Scene, cfg: SceneConfig, target, num_samples: int = 1):
+        count = jnp.float32(cfg.width * cfg.height * 3)
+
+        def band(scene, target):
+            row0, rows = _band(cfg, mesh)
+            live = jnp.repeat(row0 + jnp.arange(rows) < cfg.height,
+                              cfg.width)[:, None]
+            derived = _derived(scene)
+
+            def loss(s):
+                img = render_mean(_with_derived(s, derived), cfg, num_samples,
+                                  (row0, rows))
+                return jnp.sum(jnp.where(live, (img - target) ** 2, 0.0)) / count
+
+            rest = _with_derived(
+                scene, (dict.fromkeys(ACCEL_FIELDS), None))
+            g = jax.grad(loss, allow_int=True)(rest)
+            g = jax.tree.map(
+                lambda x: jax.lax.psum(x, RAY_AXIS)
+                if jnp.issubdtype(x.dtype, jnp.floating) else x, g)
+            # Derived data has a zero gradient by contract (traversal runs
+            # under stop_gradient; the attribute table's cotangent goes to
+            # vertices and normals): it is made on each device, not summed.
+            return _with_derived(g, jax.tree.map(_zero_cotangent, derived))
+
+        return jax.shard_map(
+            band, mesh=mesh, in_specs=(P(), P(RAY_AXIS)),
+            out_specs=P(), check_vma=False,
+        )(scene, target)
+
+    return grad
+
+
+def collective_census(hlo_text: str) -> dict:
+    """Count the inter-device collectives in compiled HLO text and sum
+    their payload bytes (every shape of each result)."""
+    counts = dict.fromkeys(COLLECTIVES, 0)
+    total = 0
+    for line in hlo_text.splitlines():
+        for k in COLLECTIVES:
+            m = re.search(rf"=(.*?)\b{k}(-start)?\(", line)
+            if m:
+                counts[k] += 1
+                for dtype, dims in _SHAPE.findall(m.group(1)):
+                    n = 1
+                    for d in dims.split(","):
+                        n *= int(d) if d else 1
+                    total += n * _DTYPE_BYTES.get(dtype, 4)
+                break
+    counts["payload_bytes"] = total
+    return counts
 
 
 def gather_image(state: ProgressiveState, cfg: SceneConfig) -> np.ndarray:
@@ -127,7 +242,7 @@ def render_progressive_sharded(
 
     mesh = mesh if mesh is not None else make_ray_mesh()
     scene = replicate_scene(scene, mesh)
-    state = shard_state(init_state(cfg), mesh)
+    state = shard_state(init_state(cfg), cfg, mesh)
     step = sharded_step(mesh)
     for _ in range(num_samples):
         state = step(scene, cfg, state)

@@ -42,16 +42,20 @@ def make_camera(eye, target, up=(0.0, 1.0, 0.0), constant=1.0, aspect=1.0) -> Ca
     )
 
 
-def pixel_uv(width: int, height: int):
+def pixel_uv(width: int, height: int, row0=0, rows: int | None = None):
     """Per-pixel quad coords uv in [-1/2, 1/2), matching the rasterized
     full-screen quad: ``coords`` is NDC in [-1, 1] scaled by 0.5
     (``w9e2.wgsl:251-253``), with y up and pixel centers at half-texel.
 
     Returns (u, v) each shaped (H*W,), row-major with row 0 at the top (same
     as ``clip_position.y`` indexing for launch_idx, ``w9e2.wgsl:255-258``).
+    ``row0``/``rows`` select the band of ``rows`` image rows from ``row0``
+    (which may be traced); rows past ``height`` continue the same grid.
     """
+    rows = height if rows is None else rows
     xs = (jnp.arange(width, dtype=jnp.float32) + 0.5) / width  # [0,1)
-    ys = (jnp.arange(height, dtype=jnp.float32) + 0.5) / height
+    iy = row0 + jnp.arange(rows, dtype=jnp.int32)
+    ys = (iy.astype(jnp.float32) + 0.5) / height
     u = xs - 0.5
     v = 0.5 - ys  # screen row 0 is top => +v up
     uu, vv = jnp.meshgrid(u, v, indexing="xy")  # (H, W)

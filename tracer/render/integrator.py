@@ -1,12 +1,12 @@
-"""Wavefront integrator — the reference's fragment-shader megaloop, TPU-shaped.
+"""Wavefront integrator — the reference's fragment-shader megaloop as arrays.
 
 One bounce of the reference (``fs_main`` loop, ``w8e3.wgsl:264-275``) is:
 closest-hit against analytic primitives + trimesh, a material-switch shade
 that may respawn the ray, and early exit on absorption/terminal shaders. Here
 the whole W*H pixel wavefront advances through a ``lax.scan`` over the bounce
 budget: every lane evaluates every material branch and masks select the
-results — the TPU VPU runs all lanes in lockstep, so masked arithmetic
-replaces the GPU's divergent branches.
+results, so masked array arithmetic replaces the shader's divergent
+branches.
 
 Faithfulness notes:
 * the per-lane PRNG state advances exactly as the per-branch draw sequence of
@@ -20,6 +20,7 @@ Faithfulness notes:
 
 from __future__ import annotations
 
+import dataclasses
 from functools import partial
 
 import jax
@@ -27,8 +28,8 @@ import jax.numpy as jnp
 
 from tracer.accel import traverse
 from tracer.kernels import intersect
-from tracer.kernels.intersect import INF, Rays
-from tracer.math import onb, rng, vec
+from tracer.kernels.intersect import Rays
+from tracer.math import rng, vec
 from tracer.render import texture as tex
 from tracer.render.camera import camera_rays, pixel_uv
 from tracer.render.scene import (
@@ -84,12 +85,23 @@ def _resolve_shader(shader_code, uniforms):
 
 
 
+def onehot_rows(idx, table):
+    """``table[idx]`` as a one-hot matmul: its backward is a matmul rather
+    than a scatter. HIGHEST precision keeps the product exact (each output
+    is one table entry plus zeros); a reduced-precision f32 matmul (TF32)
+    would round the table's mantissas."""
+    oh = (
+        idx[:, None] == jnp.arange(table.shape[0], dtype=idx.dtype)[None, :]
+    ).astype(jnp.float32)
+    return jnp.dot(oh, table, precision=jax.lax.Precision.HIGHEST)
+
+
 def _effective_traversal(scene: Scene, cfg: SceneConfig) -> str:
     """Execution engine for the mesh hot path. BSP-configured scenes
     default to the treelet engines (cfg.bsp_execution == "fast"): the
     result of a closest-hit/any-hit query is traversal-independent, so
     the faithful BSP walk stays available ("walk") without being the
-    render path (VERDICT r3 item 2; parity gated in tests)."""
+    render path (parity gated in tests)."""
     if (
         cfg.traversal == "bsp"
         and cfg.bsp_execution == "fast"
@@ -303,22 +315,17 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
         ok = tri >= 0
         tri_c = jnp.clip(tri, 0, scene.geom.indices.shape[0] - 1)
         # Both drivers fetch hit attributes as ONE row gather from the
-        # precomputed (T, 20) table (gathers are per-INDEX bound on TPU:
-        # the old differentiable 3-corner formulation paid 3N indices).
-        # fetch_tri_rows carries a custom VJP so the scan driver stays
-        # reverse-differentiable: the backward is one stacked (V, 6)
-        # scatter-add into vertices+normals.
+        # precomputed (T, 20) table. fetch_tri_rows carries a custom VJP
+        # so the scan driver stays reverse-differentiable: the backward is
+        # one stacked (V, 6) scatter-add into vertices+normals.
         from tracer.geometry.device import fetch_tri_rows
 
         T_mesh = scene.geom.indices.shape[0]
         if T_mesh <= 128:
             # Small meshes (the brute-force scenes: Cornell boxes, quads)
             # fetch via a one-hot matmul over a table built differentiably
-            # in-trace: a 262k-index gather from a 12-row table costs the
-            # same ~26 ns/index as from a 870k-row one (finding 19) —
-            # ~7 ms per BOUNCE on the W8E3 path tracer — while the
-            # (N, T) one-hot matmul is trivial and its backward is a
-            # matmul + a 3T-index scatter instead of an N-index one.
+            # in-trace: its backward is a matmul + a 3T-index scatter
+            # instead of an N-index one.
             idxT = scene.geom.indices
             cols = [scene.geom.vertices[idxT[:, c]] for c in range(3)]
             cols += [scene.geom.normals[idxT[:, c]] for c in range(3)]
@@ -328,12 +335,7 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
                     scene.geom.mat_ids.astype(jnp.float32)
                 )[:, None].reshape(T_mesh, 1)
             )
-            table = jnp.concatenate(cols, axis=1)  # (T, 19)
-            oh_t = (
-                tri_c[:, None]
-                == jnp.arange(T_mesh, dtype=tri_c.dtype)[None, :]
-            ).astype(jnp.float32)
-            row = oh_t @ table
+            row = onehot_rows(tri_c, jnp.concatenate(cols, axis=1))
         else:
             row = fetch_tri_rows(
                 scene.geom.vertices,
@@ -349,27 +351,12 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
         n1 = row[:, 12:15]
         n2 = row[:, 15:18]
         mat = jax.lax.stop_gradient(row[:, 18]).astype(jnp.int32)
-        # Gradient-attribution probes (tools/profile_grad.py): cut one
-        # half of the vertex cotangent chain to localize backward cost.
-        import os as _os
-
-        _probe = _os.environ.get("TRACER_GRAD_PROBE", "")
-        if _probe == "sg_t":  # vertices reach the loss via normals only
-            sgp = jax.lax.stop_gradient
-            v0t, v1t, v2t = sgp(v0), sgp(v1), sgp(v2)
-        elif _probe == "sg_n":  # vertices reach the loss via t/pos only
-            sgp = jax.lax.stop_gradient
-            n0, n1, n2 = sgp(n0), sgp(n1), sgp(n2)
-            v0t, v1t, v2t = v0, v1, v2
-            v0, v1, v2 = sgp(v0), sgp(v1), sgp(v2)  # face-normal fallback
-        else:
-            v0t, v1t, v2t = v0, v1, v2
         # Differentiable re-derivation of t/beta/gamma from the winning id.
         t_d, beta, gamma, _ = intersect.triangle_t(
             Rays(rays.o, rays.d, jnp.zeros_like(rays.tmin), rays.tmax),
-            v0t,
-            v1t,
-            v2t,
+            v0,
+            v1,
+            v2,
         )
         pos = rays.o + t_d[:, None] * rays.d
         face_n = vec.cross(v1 - v0, v2 - v0)
@@ -391,17 +378,10 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
         shader = jnp.broadcast_to(
             _resolve_shader(jnp.int32(cfg.mesh_shader), uniforms), (n,)
         ).astype(jnp.int32)
-        # Material fetch as a one-hot matmul instead of 5 row gathers:
-        # the material table is tiny (M <= 8 in every scene), the
-        # forward matmul is trivial, and — decisive for the grad step —
-        # the BACKWARD of a matmul is a matmul, where the backward of a
-        # gather is a serial ~44 ns/index scatter (finding 22). Five
-        # degenerate (all-indices-equal) scatters cost more than the
-        # vertex scatter-add they accompany.
-        M = scene.materials.diffuse.shape[0]
-        oh = (mat[:, None] == jnp.arange(M, dtype=jnp.int32)[None, :]).astype(
-            jnp.float32
-        )  # (N, M)
+        # Material fetch as one one-hot matmul instead of 5 row gathers:
+        # the material table is tiny (M <= 8 in every scene), and the
+        # backward of a matmul is a matmul where the backward of a gather
+        # with N nearly-all-equal indices is a heavily contended scatter.
         pack = jnp.concatenate(
             [
                 scene.materials.diffuse,
@@ -412,7 +392,7 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
             ],
             axis=1,
         )  # (M, 11)
-        rows = oh @ pack  # (N, 11)
+        rows = onehot_rows(mat, pack)  # (N, 11)
         best = upd(
             best,
             ok,
@@ -549,8 +529,7 @@ def _area_light_attrs(scene: Scene, light_slot):
     Per-ray slots select via a one-hot matmul over the (L, 12) light
     table instead of per-ray row gathers: L is tiny (2 for the Cornell
     scenes), and a matmul's backward is a matmul where a gather's is a
-    serial per-index scatter (finding 22) — this is the path-mode NEE
-    hot loop, hit every bounce.
+    scatter — this is the path-mode NEE hot loop, hit every bounce.
     """
     L = scene.light_indices.shape[0]
     tri_all = scene.light_indices  # (L,)
@@ -561,11 +540,9 @@ def _area_light_attrs(scene: Scene, light_slot):
     leL = scene.materials.emission[scene.geom.mat_ids[tri_all]]
     slot = jnp.asarray(light_slot)
     if slot.ndim == 1 and 0 < L <= 64:
-        table = jnp.concatenate([v0L, v1L, v2L, leL], axis=1)  # (L, 12)
-        oh = (
-            slot[:, None] == jnp.arange(L, dtype=slot.dtype)[None, :]
-        ).astype(jnp.float32)
-        rows = oh @ table
+        rows = onehot_rows(
+            slot, jnp.concatenate([v0L, v1L, v2L, leL], axis=1)
+        )  # (N, 12)
         v0, v1, v2, l_e = (
             rows[:, 0:3], rows[:, 3:6], rows[:, 6:9], rows[:, 9:12]
         )
@@ -1203,7 +1180,7 @@ def bounce_loop(scene: Scene, cfg: SceneConfig, rays0: Rays, state0,
         # Done lanes collapse their ray interval to empty so every
         # traversal engine's alive-culling skips them — without this, a
         # fixed-depth scan re-traces the full original wavefront at every
-        # remaining depth (measured 34 ms/bounce of pure waste on dragon).
+        # remaining depth.
         rays = Rays(rays.o, rays.d, rays.tmin,
                     jnp.where(done, rays.tmin, rays.tmax))
         hit = trace_closest(scene, cfg, rays, seed_t=seed)
@@ -1302,19 +1279,51 @@ def _paint_bad(result, bad):
     return vec.where(bad, jnp.broadcast_to(ERROR_COLOR, result.shape), result)
 
 
-def render_sample(scene: Scene, cfg: SceneConfig):
-    """Render one sample pass over the full W x H wavefront.
+def _frame(cfg: SceneConfig, band):
+    """(traversal cfg, u, v, launch_idx) of the image rows ``band=(row0,
+    rows)`` selects (``None``: the whole frame). ``row0`` may be traced;
+    the band keeps the full frame's pixel coordinates and RNG streams, and
+    traversal sees it as its frame. Rows past H are traced like any other.
+    """
+    w, h = cfg.width, cfg.height
+    row0, rows = (0, h) if band is None else band
+    u, v = pixel_uv(w, h, row0, rows)
+    launch_idx = row0 * w + jnp.arange(w * rows, dtype=jnp.int32)
+    if rows != h:
+        cfg = dataclasses.replace(cfg, height=rows)
+    return cfg, u, v, launch_idx.astype(jnp.uint32)
+
+
+def _direct_rays(scene: Scene, cfg: SceneConfig, u, v):
+    """Primary rays of each stratified sub-sample (w3e3.wgsl:150-165)."""
+    jitters = scene.jitters
+    if jitters is None:
+        jitters = jnp.zeros((1, 2), jnp.float32)
+    n = u.shape[0]
+    out = []
+    for i in range(jitters.shape[0]):
+        rays = camera_rays(scene.camera, u, v, jnp.broadcast_to(jitters[i], (n, 2)))
+        out.append(Rays(
+            rays.o, rays.d,
+            jnp.full(n, cfg.eta, jnp.float32),
+            jnp.full(n, cfg.tmax, jnp.float32),
+        ))
+    return out
+
+
+def render_sample(scene: Scene, cfg: SceneConfig, band=None):
+    """Render one sample pass over the full W x H wavefront, or over the
+    rows ``band=(row0, rows)`` selects (see ``_frame``).
 
     Path mode: per-pixel PRNG jitter seeded by (launch_idx, iteration)
     exactly as w8e3.wgsl:254-259. Direct mode: average over the stratified
     jitter table (w3e3.wgsl:150-165), subdivs^2 sub-samples.
     """
-    w, h = cfg.width, cfg.height
-    u, v = pixel_uv(w, h)
-    n = w * h
-    launch_idx = jnp.arange(n, dtype=jnp.uint32)
+    h = cfg.height
+    cfg, u, v, launch_idx = _frame(cfg, band)
+    n = u.shape[0]
+    state = rng.pixel_seed(launch_idx, scene.uniforms.iteration)
     if cfg.mode == "path":
-        state = rng.pixel_seed(launch_idx, scene.uniforms.iteration)
         j1, state = rng.rnd(state)
         j2, state = rng.rnd(state)
         jitter = jnp.stack([j1, j2], axis=-1) / jnp.float32(h)
@@ -1326,28 +1335,18 @@ def render_sample(scene: Scene, cfg: SceneConfig):
         )
         return bounce_loop(scene, cfg, rays, state)
     # Direct mode: stratified subdivision table, zero RNG consumption.
-    jitters = scene.jitters
-    if jitters is None:
-        jitters = jnp.zeros((1, 2), jnp.float32)
-    k = jitters.shape[0]
-    state = rng.pixel_seed(launch_idx, scene.uniforms.iteration)
+    all_rays = _direct_rays(scene, cfg, u, v)
     acc = jnp.zeros((n, 3), jnp.float32)
-    for i in range(k):
-        rays = camera_rays(scene.camera, u, v, jnp.broadcast_to(jitters[i], (n, 2)))
-        rays = Rays(
-            rays.o, rays.d,
-            jnp.full(n, cfg.eta, jnp.float32),
-            jnp.full(n, cfg.tmax, jnp.float32),
-        )
+    for rays in all_rays:
         acc = acc + bounce_loop(scene, cfg, rays, state)
-    return acc / jnp.float32(k)
+    return acc / jnp.float32(len(all_rays))
 
 
-def render_sample_seeded(scene: Scene, cfg: SceneConfig, seed_t):
+def render_sample_seeded(scene: Scene, cfg: SceneConfig, seed_t, band=None):
     """``render_sample`` + temporal t-bound seeding for single-bounce
     direct scenes on the flat engine: the per-sub-tile break bounds start
-    at last frame's depths instead of being discovered along the stream
-    (the engine's measured floor, PROFILE finding 18). Returns
+    at last frame's depths instead of being discovered along the stream.
+    Returns
     (radiance, next_seed). EXACT: lanes whose hint undershoots (moved
     camera, disocclusion) are re-traced by the flat engine's repair pass,
     so the radiance is bit-identical to the unseeded render.
@@ -1355,40 +1354,25 @@ def render_sample_seeded(scene: Scene, cfg: SceneConfig, seed_t):
     Falls back to plain ``render_sample`` (hint passed through) for
     path-mode / multi-bounce / non-treelet scenes.
     """
-    import os as _os
-
     seeded = (
-        _os.environ.get("TRACER_SEED", "1") != "0"
-        and _single_bounce(cfg)
+        _single_bounce(cfg)
         and cfg.max_depth >= 1
         and scene.geom is not None
         and scene.tb is not None
         and _effective_traversal(scene, cfg) == "bvh"
     )
     if not seeded:
-        return render_sample(scene, cfg), seed_t
-    w, h = cfg.width, cfg.height
-    u, v = pixel_uv(w, h)
-    n = w * h
-    launch_idx = jnp.arange(n, dtype=jnp.uint32)
-    jitters = scene.jitters
-    if jitters is None:
-        jitters = jnp.zeros((1, 2), jnp.float32)
-    k = jitters.shape[0]
+        return render_sample(scene, cfg, band), seed_t
+    cfg, u, v, launch_idx = _frame(cfg, band)
     state = rng.pixel_seed(launch_idx, scene.uniforms.iteration)
-    acc = jnp.zeros((n, 3), jnp.float32)
-    for i in range(k):
-        rays = camera_rays(scene.camera, u, v, jnp.broadcast_to(jitters[i], (n, 2)))
-        rays = Rays(
-            rays.o, rays.d,
-            jnp.full(n, cfg.eta, jnp.float32),
-            jnp.full(n, cfg.tmax, jnp.float32),
-        )
+    all_rays = _direct_rays(scene, cfg, u, v)
+    acc = jnp.zeros((u.shape[0], 3), jnp.float32)
+    for rays in all_rays:
         res, seed_t = bounce_loop(
             scene, cfg, rays, state, seed_t=seed_t, return_t=True
         )
         acc = acc + res
-    return acc / jnp.float32(k), seed_t
+    return acc / jnp.float32(len(all_rays)), seed_t
 
 
 def accumulate(result, accum, iteration):
@@ -1411,6 +1395,6 @@ def to_display(accum, cfg: SceneConfig):
 def render_frame(scene: Scene, cfg: SceneConfig, accum):
     """One progressive frame: sample pass + accumulation. ``accum`` is the
     device-resident running mean (donate it at the call site for the
-    ping-pong-free TPU analog of the reference's texture pair)."""
+    ping-pong-free analog of the reference's texture pair)."""
     result = render_sample(scene, cfg)
     return accumulate(result, accum, scene.uniforms.iteration)

@@ -49,7 +49,7 @@ def init_state(cfg: SceneConfig) -> ProgressiveState:
 def step(scene: Scene, cfg: SceneConfig, state: ProgressiveState) -> ProgressiveState:
     """One progressive frame = one sample pass + accumulation.
 
-    The accumulator is donated: XLA updates it in place, which is the TPU
+    The accumulator is donated: XLA updates it in place, which is the
     analog of the reference's render-to-texture + copy ping-pong
     (``render_state.rs:541-555``) without the copy.
     """
@@ -111,7 +111,7 @@ def load_checkpoint(path: str, cfg: SceneConfig) -> ProgressiveState:
         n = cfg.height * cfg.width
         seed = (
             jnp.asarray(z["seed_t"]) if "seed_t" in z.files
-            else jnp.zeros((n,), jnp.float32)  # pre-r5 checkpoints
+            else jnp.zeros((n,), jnp.float32)  # checkpoints without a seed
         )
         return ProgressiveState(
             accum=jnp.asarray(z["accum"]),

@@ -7,7 +7,7 @@ runtime ``Uniform`` struct driven by the control panel
 
 * ``Scene`` — a pytree of device arrays (geometry, accel, materials, lights,
   textures, camera, uniforms). Changing any value re-runs the same compiled
-  step — no recompilation, the TPU analog of writing a uniform buffer.
+  step — no recompilation, the analog of writing a uniform buffer.
 * ``SceneConfig`` — a frozen, hashable dataclass of *structural* choices
   (integrator mode, light kinds, traversal, feature flags). Changing one is
   the analog of swapping the WGSL shader: a new XLA compilation.
@@ -112,10 +112,9 @@ class SceneConfig:
     firefly_clamp: float = 0.0  # min(shade, clamp) when > 0 (w8e3.wgsl:250)
     gamma: float = 1.0  # display transform exponent (pow(color, gamma))
     traversal: str = "bvh"  # "brute" | "bvh" | "bsp"
-    # How "bsp" scenes execute on TPU. The reference's default engine for
-    # w6-w8 is the spliced BSP library (res/shaders/bsp.wgsl:10-81); its
-    # per-ray gather walk is exactly the shape the TPU is worst at
-    # (PROFILE.md finding 1), so "fast" keeps the BSP tree as the built,
+    # How "bsp" scenes execute. The reference's default engine for w6-w8
+    # is the spliced BSP library (res/shaders/bsp.wgsl:10-81), a per-ray
+    # gather walk; "fast" keeps the BSP tree as the built,
     # tested structure but serves rendering through the treelet engines —
     # closest-hit results are traversal-independent (parity-gated in
     # tests/test_oracle_parity.py). "walk" forces the faithful per-ray
@@ -159,7 +158,7 @@ class Scene:
     materials: Optional[MaterialTable]
     light_indices: Optional[jnp.ndarray]  # (L,) i32 emissive triangle ids
     bvh: Optional[BvhBuffers]
-    wide: Optional[object]  # WideBvh — TPU-shaped 8-ary BVH (accel.wide)
+    wide: Optional[object]  # WideBvh — 8-ary BVH (accel.wide)
     tb: Optional[object]  # TreeletBvh — packet-traversal structure (accel.treelet)
     bsp: Optional[object]  # BspBuffers (imported lazily to avoid cycles)
     env: Optional[TextureBuf]

@@ -1,7 +1,7 @@
 """Disk cache for scene-build products (mesh + treelet accel).
 
 The reference rebuilds its accel structures on every scene switch in ~50 ms
-native Rust (``journal/src/benchmark.md:25-32``); the TPU build's host half
+native Rust (``journal/src/benchmark.md:25-32``); this build's host half
 (OBJ parse / procedural gen + LBVH + treelet cut) costs seconds of Python,
 so warm scene loads memoize it on disk:
 
